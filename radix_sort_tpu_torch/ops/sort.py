@@ -1,0 +1,106 @@
+"""Stable multi-pass LSD radix sort — the engine's centrepiece.
+
+Port of ``radix_sort_tpu/ops/sort.py``.  Keys go through the
+order-preserving transform of ``dtypes.to_sortable`` (int32/int64
+containers whose unsigned order is the key order), so every key type shares
+one code path, and come back to the caller's dtype at the end.
+
+Engines:
+  - ``radix`` (= ``auto``): the LSD radix passes of ops/cuda_radix.py.  On a
+    CUDA tensor every pass runs the CUDA kernels; on a CPU tensor it runs
+    their plain torch versions.  Stable as it stands, so the JAX package's
+    two-key trick for an unstable network has no counterpart.
+  - ``torch_sort``: ``torch.sort(stable=True)``, the speed baseline on the
+    same card.  ``auto`` never chooses it.
+
+The JAX package's other engines are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+from torch.utils import _pytree as pytree
+
+from .. import dtypes
+from ..config import DEFAULT_CONFIG, SortConfig
+from ..status import EngineError, OperationStatus
+from . import cuda_radix
+
+ENGINES = ("auto", "radix", "torch_sort")
+NOT_YET_PORTED = ("xla_sort", "xla_radix", "pallas", "pallas_merge",
+                  "pallas_stream", "chunked")
+
+
+def _dispatch_engine(engine: str) -> str:
+    if engine == "auto":
+        return "radix"
+    if engine in ENGINES:
+        return engine
+    if engine in NOT_YET_PORTED:
+        raise EngineError(OperationStatus.INITIALIZATION_FAILED,
+                          f"engine {engine!r} is not yet ported")
+    raise EngineError(OperationStatus.INITIALIZATION_FAILED,
+                      f"unknown engine {engine!r}")
+
+
+def _torch_sort_engine(keys_bits: torch.Tensor, payloads):
+    order = torch.sort(dtypes.signed_order(keys_bits), stable=True).indices
+    return keys_bits[order], tuple(
+        dtypes.from_container(dtypes.as_container(p)[order], p.dtype)
+        for p in payloads)
+
+
+def sort_biased_kv(keys_bits: torch.Tensor, payloads,
+                   config: SortConfig = DEFAULT_CONFIG):
+    """Engine-dispatched stable sort of sortable key bits (already through
+    ``dtypes.to_sortable``) with a tuple of payload tensors."""
+    payloads = tuple(payloads)
+    engine = _dispatch_engine(config.engine)
+    if engine == "radix":
+        return cuda_radix.sort_biased(keys_bits, payloads, config)
+    return _torch_sort_engine(keys_bits, payloads)
+
+
+def _sort_impl(keys: torch.Tensor, payloads, config: SortConfig):
+    if keys.ndim != 1:
+        raise EngineError(OperationStatus.HOST_BUFFERS_FAILED,
+                          f"keys must be 1-D, got shape {tuple(keys.shape)}")
+    ku, pls = sort_biased_kv(dtypes.to_sortable(keys), payloads, config)
+    return dtypes.from_sortable(ku, keys.dtype), pls
+
+
+def sort(keys: torch.Tensor, config: SortConfig = DEFAULT_CONFIG,
+         engine: str | None = None) -> torch.Tensor:
+    """Key-only sort (ascending, stable)."""
+    if engine is not None:
+        config = dataclasses.replace(config, engine=engine)
+    out, _ = _sort_impl(keys, (), config)
+    return out
+
+
+def sort_kv(keys: torch.Tensor, values: Any,
+            config: SortConfig = DEFAULT_CONFIG, engine: str | None = None):
+    """Key-value sort: ``values`` is a pytree (dict, tuple, list or one
+    tensor) of 1-D tensors as long as ``keys``; every leaf is permuted with
+    the keys, stably."""
+    if engine is not None:
+        config = dataclasses.replace(config, engine=engine)
+    leaves, spec = pytree.tree_flatten(values)
+    for leaf in leaves:
+        if leaf.shape[0] != keys.shape[0]:
+            raise EngineError(
+                OperationStatus.HOST_BUFFERS_FAILED,
+                f"value leaf length {leaf.shape[0]} != keys {keys.shape[0]}")
+    out_keys, out_leaves = _sort_impl(keys, tuple(leaves), config)
+    return out_keys, pytree.tree_unflatten(list(out_leaves), spec)
+
+
+def argsort(keys: torch.Tensor, config: SortConfig = DEFAULT_CONFIG,
+            engine: str | None = None) -> torch.Tensor:
+    """Stable argsort (int32 permutation)."""
+    iota = torch.arange(keys.shape[0], dtype=torch.int32, device=keys.device)
+    _, perm = sort_kv(keys, iota, config=config, engine=engine)
+    return perm

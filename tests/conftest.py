@@ -35,3 +35,9 @@ KEY_DTYPE_IDS = ["u32", "i32", "u64", "i64"]
 @pytest.fixture(params=KEY_DTYPES, ids=KEY_DTYPE_IDS)
 def key_dtype(request):
     return np.dtype(request.param)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (the PyTorch port's kernel tests); "
+        "skipped on machines without one")
