@@ -3,22 +3,35 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels of ``radix_sort_tpu_torch`` from ``csrc/`` (into
-``build/kernels/``), holds each kernel bit-exact against its plain torch
-version at the shapes the main path gives it, then runs the main path at
-BASELINE sizes through the public entry points:
+``build/kernels/``) and the native host baselines of ``native/`` where a
+C++ compiler is present, holds each kernel bit-exact against its plain
+torch version at the shapes the main path gives it, then runs two paths at
+BASELINE sizes through the public entry points, each with the kernels'
+launch counters set to 0 just before it and read just after:
 
+  the radix path
   - ``sort_kv``: u32 keys + int32 iota payload at 2^27 over the five
     ``datasets`` distributions, u64 keys at 2^27, and ``sort`` u32 key-only
     at 2^25, each timed beside ``engine="torch_sort"`` (torch.sort);
   - config 3: ``filter_expr(k < 500)`` → ``hash_aggregate(count, sum)`` over
     2^26 rows, checked against ``np.bincount``;
   - config 4: ``hash_join`` of a 2^20-row probe against a 2^18-row unique
-    build, checked against numpy.
+    build, checked against numpy;
+
+  the merge path
+  - ``sort(engine="merge")``: u32 key-only at 2^25 over the five
+    distributions, i32 and f32 at 2^25, u32 at 2^25 - 777 and at 2^27, each
+    timed beside ``radix`` and ``torch_sort``;
+  - ``top_k`` at 2^25 with k = 2^24 under ``engine="merge"`` and k = 1024,
+    and ``top_k_kv`` with heavy ties, against numpy;
+  - the harness: ``run_all`` over u32/i32/u64/i64 x five distributions at
+    2^22, and a key-only ``SortTask`` under ``engine="merge"`` at 2^25,
+    every row valid; the CSV rows are printed.
 
 Every phase raises on a failure, so the exit code is non-zero and the last
 line is not printed.  The last line is the JSON object
 ``{"ok": true, "device": {...}}``; the line before it lists each kernel with
-its launch count on the main path and its time beside the plain version's.
+its launch count on the two paths and its time beside the plain version's.
 Needs one CUDA card; exits non-zero without one.
 """
 
@@ -32,12 +45,18 @@ import time
 import numpy as np
 import torch
 
-SOURCE = "radix_sort_tpu_torch/csrc/radix.cu"
+RADIX_CU = "radix_sort_tpu_torch/csrc/radix.cu"
+MERGE_CU = "radix_sort_tpu_torch/csrc/merge.cu"
+SOURCES = {"digit_histogram": RADIX_CU, "exclusive_scan": RADIX_CU,
+           "rank_scatter": RADIX_CU, "tile_sort": MERGE_CU,
+           "merge_level": MERGE_CU}
 REPLACES = {
     "digit_histogram": "radix_sort_tpu/ops/pallas_radix.py:140",
     "exclusive_scan": "radix_sort_tpu/ops/pallas_radix.py:217",
     "rank_scatter": ("radix_sort_tpu/ops/pallas_radix.py:263; "
                      "radix_sort_tpu/ops/pallas_stream.py:427"),
+    "tile_sort": "radix_sort_tpu/ops/pallas_merge.py:265",
+    "merge_level": "radix_sort_tpu/ops/pallas_merge.py:283",
 }
 REPS = 5
 
@@ -98,6 +117,19 @@ def phase_device():
     return card
 
 
+def launch_counts():
+    from radix_sort_tpu_torch.ops import cuda_merge, cuda_radix
+
+    return {**cuda_radix.launch_counts(), **cuda_merge.launch_counts()}
+
+
+def reset_launch_counts():
+    from radix_sort_tpu_torch.ops import cuda_merge, cuda_radix
+
+    cuda_radix.reset_launch_counts()
+    cuda_merge.reset_launch_counts()
+
+
 def phase_build():
     from radix_sort_tpu_torch import _build
 
@@ -106,13 +138,26 @@ def phase_build():
     _build.lib()
     print(f"[build] {path.name} in {time.perf_counter() - t0:.2f} s",
           flush=True)
+    # The harness times the reference's C++ host baselines where they are
+    # built, and golden.cpu_radix_sort (much slower at 2^25) where not.
+    t0 = time.perf_counter()
+    try:
+        res = subprocess.run(["make", "-C", "native"], capture_output=True,
+                             text=True, timeout=300)
+        built = res.returncode == 0
+        why = res.stderr.strip()[-300:]
+    except (OSError, subprocess.TimeoutExpired) as e:
+        built, why = False, str(e)
+    print(f"[build] native/libhostbaseline.so "
+          f"{'built' if built else 'not built: ' + why} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
 
 
-def phase_kernels(dev, rt, cr):
+def phase_kernels(dev, rt, cr, cm):
     """Each kernel against its plain version on the same card tensors."""
     rng = np.random.default_rng(0)
     res = {k: {"max_abs_err": 0} for k in REPLACES}
-    before = cr.launch_counts()
+    before = launch_counts()
 
     def note(name, err, ms=None, plain_ms=None):
         r = res[name]
@@ -170,7 +215,52 @@ def phase_kernels(dev, rt, cr):
                                                  4096, 0, with_dest=True)),
                  time_ms(lambda: cr.rank_scatter_plain(
                      keys, planes, base, 256, 4096, 0, with_dest=True)))
-    after = cr.launch_counts()
+
+    # K5 and K6 at the shapes of a 2^25 key-only sort: 2048 tiles, levels
+    # 0 and 10 (the last), on keys in the kernels' sign-flipped domain.
+    n = 1 << 25
+    last = (n // cm.TILE).bit_length() - 2
+    for ds in (rt.datasets.RandomDistributed(np.uint32, seed=0),
+               rt.datasets.Zeros(np.uint32)):
+        keys = rt.dtypes.tensor_from_numpy(ds.generate(n), dev)
+        x = rt.dtypes.signed_order(rt.dtypes.to_sortable(keys))
+        tiles = cm.tile_sort(x)
+        err = max_abs_err(tiles, cm.tile_sort_plain(x))
+        require(err == 0, f"tile_sort on {ds.name} disagrees")
+        print(f"[kernels] tile_sort n={n} {ds.name}: bit-exact", flush=True)
+        level_in, cur = {}, tiles
+        for level in range(last + 1):
+            level_in[level] = cur
+            cur, _ = cm.merge_level(cur, level)
+        require(bool((cur[1:] >= cur[:-1]).all()),
+                f"merge levels on {ds.name}: not sorted")
+        for level in (0, last):
+            xin = level_in[level]
+            got, splits = cm.merge_level(xin, level, with_splits=True)
+            want_splits = cm.level_splits_plain(xin, level)
+            err = max(max_abs_err(a, b) for a, b in zip(splits, want_splits))
+            require(err == 0, f"merge_level {level} splits on {ds.name} "
+                              f"disagree")
+            err = max_abs_err(got, cm.merge_level_plain(xin, *want_splits))
+            require(err == 0, f"merge_level {level} on {ds.name} disagrees")
+            print(f"[kernels] merge_level n={n} level {level} {ds.name} "
+                  f"(splits + output): bit-exact", flush=True)
+        if ds.name == "RandomDistributed":
+            note("tile_sort", 0, time_ms(lambda: cm.tile_sort(x)),
+                 time_ms(lambda: cm.tile_sort_plain(x)))
+            xin = level_in[0]
+            ms0 = time_ms(lambda: cm.merge_level(xin, 0))
+            xin = level_in[last]
+            note("merge_level", 0, time_ms(lambda: cm.merge_level(xin, last)),
+                 time_ms(lambda: cm.merge_level_plain(
+                     xin, *cm.level_splits_plain(xin, last))))
+            print(f"[kernels] merge_level n={n}: level 0 {ms0:.3f} ms, level "
+                  f"{last} {res['merge_level']['ms']:.3f} ms (plain "
+                  f"{res['merge_level']['plain_ms']:.3f} ms); tile_sort "
+                  f"{res['tile_sort']['ms']:.3f} ms (plain "
+                  f"{res['tile_sort']['plain_ms']:.3f} ms)", flush=True)
+        del keys, x, tiles, level_in, cur
+    after = launch_counts()
     for name in REPLACES:
         require(after[name] > before[name], f"{name} launch counter idle")
     torch.cuda.synchronize()
@@ -180,10 +270,11 @@ def phase_kernels(dev, rt, cr):
 def check_sorted_kv(rt, keys_in, keys_out, perm, host_keys, what):
     """On the device: sorted, same key multiset (sum + xor), payload is the
     permutation that produced the keys, stable within equal keys.  On the
-    host: a 2^20 prefix against np.sort."""
-    bi = rt.dtypes.as_container(keys_in)
-    bo = rt.dtypes.as_container(keys_out)
-    so = rt.dtypes.signed_order(rt.dtypes.to_sortable(keys_out))
+    host: a 2^20 prefix against np.sort.  Sums and xors run on the
+    sortable bits, a bijection of the keys that floats have too."""
+    bi = rt.dtypes.to_sortable(keys_in)
+    bo = rt.dtypes.to_sortable(keys_out)
+    so = rt.dtypes.signed_order(bo)
     require(bool((so[1:] >= so[:-1]).all()), f"{what}: not sorted")
     require(int(bi.sum()) == int(bo.sum()), f"{what}: key sum differs")
     require(xor_reduce(bi) == xor_reduce(bo), f"{what}: key xor differs")
@@ -294,30 +385,137 @@ def phase_config4(dev, rt):
     return ms, ms_t
 
 
+def phase_merge(dev, rt):
+    """Key-only sorts under engine="merge", timed beside radix and
+    torch.sort."""
+    D = rt.datasets
+    cases = [(ds, 1 << 25) for ds in D.make_datasets(np.uint32, 0)]
+    cases += [(D.RandomDistributed(np.int32, seed=0), 1 << 25),
+              (D.RandomDistributed(np.float32, seed=0), 1 << 25),
+              (D.RandomDistributed(np.uint32, seed=1), (1 << 25) - 777),
+              (D.RandomDistributed(np.uint32, seed=2), 1 << 27)]
+    results = []
+    for ds, n in cases:
+        host = ds.generate(n)
+        keys = rt.dtypes.tensor_from_numpy(host, dev)
+        what = f"sort {host.dtype.name} {ds.name} n={n}"
+        check_sorted_kv(rt, keys, rt.sort(keys, engine="merge"), None, host,
+                        what)
+        ms = {e: time_ms(lambda: rt.sort(keys, engine=e))
+              for e in ("merge", "radix", "torch_sort")}
+        print(f"[merge] {what}: validated; merge {ms['merge']:.3f} ms "
+              f"({n / ms['merge'] / 1e3:.1f} Mkeys/s), radix "
+              f"{ms['radix']:.3f} ms, torch.sort {ms['torch_sort']:.3f} ms",
+              flush=True)
+        results.append((what, ms))
+        del keys
+    return results
+
+
+def phase_topk(dev, rt):
+    """top_k on both paths (large k under engine="merge") and top_k_kv with
+    heavy ties, against numpy's stable order."""
+    n = 1 << 25
+    host = rt.datasets.RandomDistributed(np.uint32, seed=5).generate(n)
+    keys = rt.dtypes.tensor_from_numpy(host, dev)
+    best = np.sort(host)[::-1]
+    merge_cfg = rt.SortConfig(engine="merge")
+    for k, cfg in ((1 << 24, merge_cfg), (1024, rt.DEFAULT_CONFIG)):
+        got = rt.dtypes.tensor_to_numpy(rt.top_k(keys, k, config=cfg))
+        require(np.array_equal(got, best[:k]), f"top_k k={k} differs")
+        ms = time_ms(lambda: rt.top_k(keys, k, config=cfg))
+        print(f"[topk] top_k u32 n={n} k={k} engine={cfg.engine}: validated "
+              f"vs np.sort; {ms:.3f} ms", flush=True)
+    del keys
+    tied = np.random.default_rng(6).integers(0, 8, n).astype(np.uint32)
+    keys = rt.dtypes.tensor_from_numpy(tied, dev)
+    iota = torch.arange(n, dtype=torch.int32, device=dev)
+    order = np.argsort(-tied.astype(np.int64), kind="stable")
+    for k in (1024, 1 << 24):
+        ko, po = rt.top_k_kv(keys, iota, k)
+        require(np.array_equal(po.cpu().numpy(), order[:k]),
+                f"top_k_kv k={k}: payload is not numpy's stable order")
+        require(np.array_equal(rt.dtypes.tensor_to_numpy(ko),
+                               tied[order[:k]]), f"top_k_kv k={k}: keys")
+        ms = time_ms(lambda: rt.top_k_kv(keys, iota, k))
+        print(f"[topk] top_k_kv u32 integers(0, 8) n={n} k={k}: validated vs "
+              f"numpy stable argsort; {ms:.3f} ms", flush=True)
+
+
+def phase_harness(dev, rt):
+    """The reference's harness on the card: run_all at 2^22, a key-only
+    merge task at 2^25, the per-phase columns; every row valid."""
+    from radix_sort_tpu_torch import harness
+    from radix_sort_tpu_torch.utils import cli, csvio
+
+    t0 = time.perf_counter()
+    results = harness.run_all(
+        cli.RadixSortOptions(num_elements=1 << 22, iterations=2), device=dev)
+    require(len(results) == 20, f"run_all gave {len(results)} rows")
+    bad = [(r.row.datatype, r.row.dataset) for r in results if not r.valid]
+    require(not bad, f"run_all rows not valid: {bad}")
+    print(f"[harness] run_all u32/i32/u64/i64 x 5 datasets n=2^22: 20 rows "
+          f"valid in {time.perf_counter() - t0:.1f} s", flush=True)
+    opts = cli.RadixSortOptions(num_elements=1 << 25, iterations=2)
+    ds = rt.datasets.RandomDistributed(np.uint32, seed=0)
+    task = harness.SortTask(np.uint32, ds, options=opts,
+                            config=rt.SortConfig(engine="merge"),
+                            with_values=False, device=dev)
+    res = harness.run_compute_task(task)
+    require(res.valid, "key-only merge SortTask at 2^25 not valid")
+    phases = harness.SortTask(np.uint32, ds, options=opts, device=dev)
+    phases.init_resources()
+    phases.measure_phases()
+    prow = phases.perf_row(True, "radix")
+    phases.release_resources()
+    print(f"[harness] SortTask u32 key-only engine=merge n=2^25: valid, "
+          f"{res.row.avg_total_gpu:.3f} ms; radix phases of a u32 KV sort "
+          f"n=2^25: histogram {prow.avg_histogram:.3f} ms, scan "
+          f"{prow.avg_scan:.3f} ms, reorder {prow.avg_reorder:.3f} ms",
+          flush=True)
+    csvio.write_rows([r.row for r in results] + [res.row], sys.stdout)
+    sys.stdout.flush()
+
+
+def run_path(name, phases, kernels):
+    """Drive one path with every launch counter at 0 before it; require
+    each of ``kernels`` to have launched in it.  Returns the counts."""
+    reset_launch_counts()
+    for phase in phases:
+        phase()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    for k in kernels:
+        require(counts[k] > 0, f"{k} never launched on the {name} path")
+    print(f"[summary] {name} path launches {counts}", flush=True)
+    return counts
+
+
 def main() -> int:
     card = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
     import radix_sort_tpu_torch as rt
-    from radix_sort_tpu_torch.ops import cuda_radix as cr
+    from radix_sort_tpu_torch.ops import cuda_merge as cm, cuda_radix as cr
 
-    kernel_res = phase_kernels(dev, rt, cr)
+    kernel_res = phase_kernels(dev, rt, cr, cm)
 
     torch.cuda.reset_peak_memory_stats()
-    cr.reset_launch_counts()
-    phase_sort(dev, rt)
-    phase_config3(dev, rt)
-    phase_config4(dev, rt)
-    torch.cuda.synchronize()
-    launches = cr.launch_counts()
-    for name, count in launches.items():
-        require(count > 0, f"{name} never launched on the main path")
+    radix_kernels = ("digit_histogram", "exclusive_scan", "rank_scatter")
+    radix = run_path("radix", (lambda: phase_sort(dev, rt),
+                               lambda: phase_config3(dev, rt),
+                               lambda: phase_config4(dev, rt)), radix_kernels)
+    merge = run_path("merge", (lambda: phase_merge(dev, rt),
+                               lambda: phase_topk(dev, rt),
+                               lambda: phase_harness(dev, rt)),
+                     radix_kernels + ("tile_sort", "merge_level"))
+    launches = {k: radix[k] + merge[k] for k in REPLACES}
     peak = torch.cuda.max_memory_allocated()
-    print(f"[summary] main-path launches {launches}; "
+    print(f"[summary] launches on both paths {launches}; "
           f"max_memory_allocated {peak / 2**30:.2f} GiB; card {card}",
           flush=True)
 
-    kernels = [{"name": name, "route": "cuda", "source": SOURCE,
+    kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"]}

@@ -1,10 +1,10 @@
 """Build and load the CUDA kernels in ``csrc/`` at first use.
 
-``nvcc`` compiles ``csrc/radix.cu`` for ``sm_90a`` into a shared library
-with a plain C interface under ``build/kernels/`` at the root of the
-checkout (git-ignored), named by a hash of the source and the flags, so an
-edited source builds anew and an unchanged one is reused.  The library is
-loaded with ctypes; every entry point takes device pointers and the CUDA
+``nvcc`` compiles the sources of ``csrc/`` for ``sm_90a`` into one shared
+library with a plain C interface under ``build/kernels/`` at the root of
+the checkout (git-ignored), named by a hash of the sources and the flags, so
+an edited source builds anew and an unchanged one is reused.  The library
+is loaded with ctypes; every entry point takes device pointers and the CUDA
 stream as ``c_void_p`` and returns ``cudaGetLastError()``.
 
 Nothing here runs at import time: the CPU tests import every module of the
@@ -25,7 +25,7 @@ from .status import EngineError, OperationStatus
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = ("radix.cu",)
+SOURCES = ("radix.cu", "merge.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -40,6 +40,9 @@ _SIGNATURES = {
     "rst_rank_scatter": ([_P, _LL, _I, _I, _I, _I, _P,
                           ctypes.POINTER(_P), ctypes.POINTER(_P), _I, _P, _P],
                          _I),
+    "rst_merge_tile": ([], _I),
+    "rst_tile_sort": ([_P, _LL, _P, _P], _I),
+    "rst_merge_level": ([_P, _LL, _I, _P, _P, _P, _P, _P], _I),
 }
 
 
@@ -59,7 +62,7 @@ def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES:
         h.update((_CSRC / name).read_bytes())
-    return BUILD_DIR / f"librst_radix_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"librst_kernels_{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:

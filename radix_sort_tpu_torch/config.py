@@ -25,13 +25,16 @@ class SortConfig:
       (the kernels keep one shared-memory counter row per digit).
     - ``tile_elems``      — elements per CTA in every radix kernel.
     - ``threads_per_cta`` — threads per CTA.
-    - ``engine``          — "auto" (= "radix") or "torch_sort"; see
-      ops/sort.py.
+    - ``max_input_elems`` — the harness's size guard (the reference's
+      ``_NUM_MAX_INPUT_ELEMS``), as in the JAX package.
+    - ``engine``          — "auto" (= "radix"), "radix", "merge" or
+      "torch_sort"; see ops/sort.py.
     """
 
     bits_per_pass: int = 8
     tile_elems: int = 4096
     threads_per_cta: int = 256
+    max_input_elems: int = 1 << 27
     engine: str = "auto"
 
     def __post_init__(self):
@@ -44,6 +47,8 @@ class SortConfig:
                 f"(tile_elems, threads_per_cta) = "
                 f"{(self.tile_elems, self.threads_per_cta)} is not one of "
                 f"the compiled kernel shapes {KERNEL_SHAPES}")
+        if self.max_input_elems <= 0:
+            raise ValueError("max_input_elems must be positive")
 
     @property
     def radix(self) -> int:

@@ -17,8 +17,11 @@ from .config import SortConfig
 from .table import Table
 
 # Fields of the JAX SortConfig the port has no counterpart for: the TPU
-# tile, and two settings of the harness, which is not ported yet.
-DROPPED_FIELDS = ("block_elems", "max_input_elems", "perf_iterations")
+# tile, and an iteration count that nothing reads (the harness takes its
+# count from RadixSortOptions.iterations, as in the JAX package).
+DROPPED_FIELDS = ("block_elems", "perf_iterations")
+# JAX engine names whose port has another name.
+ENGINE_NAMES = {"pallas_merge": "merge"}
 
 
 def table_from_numpy(columns: Mapping[str, np.ndarray], num_rows=None,
@@ -33,9 +36,13 @@ def table_from_numpy(columns: Mapping[str, np.ndarray], num_rows=None,
 
 def sort_config_from_fields(fields: Mapping) -> SortConfig:
     """``dataclasses.asdict(jax SortConfig)`` → the port's SortConfig,
-    dropping DROPPED_FIELDS; the kernel tile keeps its default."""
+    dropping DROPPED_FIELDS and renaming the engine by ENGINE_NAMES; the
+    kernel tile keeps its default."""
     known = {f.name for f in dataclasses.fields(SortConfig)}
     unknown = set(fields) - known - set(DROPPED_FIELDS)
     if unknown:
         raise ValueError(f"unknown SortConfig fields {sorted(unknown)}")
-    return SortConfig(**{k: v for k, v in fields.items() if k in known})
+    kw = {k: v for k, v in fields.items() if k in known}
+    if "engine" in kw:
+        kw["engine"] = ENGINE_NAMES.get(kw["engine"], kw["engine"])
+    return SortConfig(**kw)

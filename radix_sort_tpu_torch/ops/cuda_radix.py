@@ -239,17 +239,19 @@ def _stitch_block_base(counts: torch.Tensor) -> torch.Tensor:
 
 
 def sort_biased(keys_bits: torch.Tensor, payloads,
-                config: SortConfig = DEFAULT_CONFIG):
+                config: SortConfig = DEFAULT_CONFIG,
+                total_bits: int | None = None):
     """Stable LSD radix sort of sortable key bits (int32/int64 containers,
     unsigned order; dtypes.to_sortable) with a tuple of payload tensors that
     ride the same permutation.  Every pass is digit_histogram →
-    _stitch_block_base → rank_scatter over int32 planes (ops/stream.py)."""
+    _stitch_block_base → rank_scatter over int32 planes (ops/stream.py);
+    ``total_bits`` (default: the container's width) sets the passes."""
     from . import stream
 
     planes, specs = stream.payloads_to_planes(payloads)
     keys_out, planes_out = stream.sort_planes(
         keys_bits, planes, radix=config.radix, tile=config.tile_elems,
-        threads=config.threads_per_cta)
+        threads=config.threads_per_cta, total_bits=total_bits)
     return keys_out, stream.planes_to_payloads(planes_out, specs)
 
 

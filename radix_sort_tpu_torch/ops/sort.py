@@ -10,6 +10,11 @@ Engines:
     CUDA tensor every pass runs the CUDA kernels; on a CPU tensor it runs
     their plain torch versions.  Stable as it stands, so the JAX package's
     two-key trick for an unstable network has no counterpart.
+  - ``merge``: the JAX package's ``pallas_merge`` engine, the tile sort and
+    merge levels of ops/cuda_merge.py, for key-only sorts of 32-bit keys
+    (u32, i32, f32).  Sorts with a payload (``argsort`` included), 64-bit
+    keys and 16-bit keys run ``radix``, as the JAX engine sends them to
+    ``xla_sort``: a dispatch by shape, not a fallback on failure.
   - ``torch_sort``: ``torch.sort(stable=True)``, the speed baseline on the
     same card.  ``auto`` never chooses it.
 
@@ -27,11 +32,11 @@ from torch.utils import _pytree as pytree
 from .. import dtypes
 from ..config import DEFAULT_CONFIG, SortConfig
 from ..status import EngineError, OperationStatus
-from . import cuda_radix
+from . import cuda_merge, cuda_radix
 
-ENGINES = ("auto", "radix", "torch_sort")
-NOT_YET_PORTED = ("xla_sort", "xla_radix", "pallas", "pallas_merge",
-                  "pallas_stream", "chunked")
+ENGINES = ("auto", "radix", "merge", "torch_sort")
+NOT_YET_PORTED = ("xla_sort", "xla_radix", "pallas", "pallas_stream",
+                  "chunked")
 
 
 def _dispatch_engine(engine: str) -> str:
@@ -54,13 +59,19 @@ def _torch_sort_engine(keys_bits: torch.Tensor, payloads):
 
 
 def sort_biased_kv(keys_bits: torch.Tensor, payloads,
-                   config: SortConfig = DEFAULT_CONFIG):
+                   config: SortConfig = DEFAULT_CONFIG,
+                   total_bits: int | None = None):
     """Engine-dispatched stable sort of sortable key bits (already through
-    ``dtypes.to_sortable``) with a tuple of payload tensors."""
+    ``dtypes.to_sortable``) with a tuple of payload tensors.  ``total_bits``
+    is the key width when it is narrower than the container (16-bit keys
+    in int32)."""
     payloads = tuple(payloads)
     engine = _dispatch_engine(config.engine)
-    if engine == "radix":
-        return cuda_radix.sort_biased(keys_bits, payloads, config)
+    bits = 8 * keys_bits.element_size() if total_bits is None else total_bits
+    if engine == "merge" and not payloads and bits == 32:
+        return cuda_merge.merge_sort_bits(keys_bits), ()
+    if engine in ("radix", "merge"):
+        return cuda_radix.sort_biased(keys_bits, payloads, config, total_bits)
     return _torch_sort_engine(keys_bits, payloads)
 
 
@@ -68,7 +79,8 @@ def _sort_impl(keys: torch.Tensor, payloads, config: SortConfig):
     if keys.ndim != 1:
         raise EngineError(OperationStatus.HOST_BUFFERS_FAILED,
                           f"keys must be 1-D, got shape {tuple(keys.shape)}")
-    ku, pls = sort_biased_kv(dtypes.to_sortable(keys), payloads, config)
+    ku, pls = sort_biased_kv(dtypes.to_sortable(keys), payloads, config,
+                             dtypes.key_bits(keys.dtype))
     return dtypes.from_sortable(ku, keys.dtype), pls
 
 

@@ -30,9 +30,12 @@ def test_package_imports_no_jax():
     """The port must run where JAX is absent: importing it (and every slice
     module) pulls in no jax module."""
     code = ("import sys, radix_sort_tpu_torch\n"
-            "from radix_sort_tpu_torch.ops import aggregate, cuda_radix, "
-            "filter, join, partition, ranking, scan, sort, stream\n"
-            "from radix_sort_tpu_torch import _build, convert, table\n"
+            "from radix_sort_tpu_torch.ops import aggregate, cuda_merge, "
+            "cuda_radix, filter, join, partition, ranking, scan, sort, "
+            "stream, topk\n"
+            "from radix_sort_tpu_torch import _build, convert, harness, table\n"
+            "from radix_sort_tpu_torch.utils import cli, csvio, "
+            "native_baseline, profiling, stats\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith('radix_sort_tpu.')]\n"
             "assert not bad, bad\n")
@@ -59,6 +62,33 @@ def test_to_sortable_matches_jax(dtype):
     np.testing.assert_array_equal(
         tdt.np_from_sortable_unsigned(want, dtype).view(np.uint8),
         jdt.np_from_sortable_unsigned(want, dtype).view(np.uint8))
+
+
+@pytest.mark.parametrize("dtype", [np.uint16, np.int16], ids=["u16", "i16"])
+def test_16bit_to_sortable_matches_jax(dtype):
+    """A 16-bit key's image is the JAX package's 16-bit image zero-extended
+    into int32, and goes back to the caller's dtype."""
+    info = np.iinfo(dtype)
+    data = np.random.default_rng(8).integers(info.min, info.max + 1, 2000)
+    data = data.astype(dtype)
+    data[:2] = (info.min, info.max)
+    want = np.asarray(jdt.to_sortable_unsigned(jnp.asarray(data)))
+    bits = tdt.to_sortable(tdt.tensor_from_numpy(data))
+    assert bits.dtype == tdt.signed_container(dtype) == torch.int32
+    np.testing.assert_array_equal(bits.numpy(), want.astype(np.int32))
+    back = tdt.tensor_to_numpy(tdt.from_sortable(bits, dtype))
+    assert back.dtype == data.dtype
+    np.testing.assert_array_equal(back, data)
+
+
+def test_registry_matches_jax():
+    assert tdt.SUPPORTED_KEY_DTYPES == jdt.SUPPORTED_KEY_DTYPES
+    for d in jdt.SUPPORTED_KEY_DTYPES:
+        assert tdt.type_name(d) == jdt.type_name(d)
+        assert tdt.c_name(d) == jdt.c_name(d)
+        assert tdt.type_name(tdt.torch_dtype(d)) == jdt.type_name(d)
+    with pytest.raises(TypeError):
+        tdt.to_sortable(torch.zeros(3, dtype=torch.int8))
 
 
 def test_sentinel_is_the_max_unsigned_pattern():
@@ -104,9 +134,23 @@ def test_sort_config_from_jax_fields():
         convert.sort_config_from_fields({"no_such_field": 1})
 
 
+def test_sort_config_keeps_harness_fields_and_renames_engine():
+    jcfg = rst.SortConfig(max_input_elems=1 << 20, perf_iterations=3,
+                          engine="pallas_merge")
+    cfg = convert.sort_config_from_fields(dataclasses.asdict(jcfg))
+    assert cfg.engine == "merge"
+    assert cfg.max_input_elems == 1 << 20
+    assert not hasattr(cfg, "perf_iterations")  # dropped: nothing reads it
+    default = convert.sort_config_from_fields(
+        dataclasses.asdict(rst.SortConfig()))
+    assert default == rtt.DEFAULT_CONFIG
+    assert default.max_input_elems == rst.DEFAULT_CONFIG.max_input_elems
+
+
 @pytest.mark.parametrize("kw", [{"bits_per_pass": 16}, {"tile_elems": 1000},
                                 {"threads_per_cta": 64},
-                                {"bits_per_pass": 3}])
+                                {"bits_per_pass": 3},
+                                {"max_input_elems": 0}])
 def test_sort_config_rejects(kw):
     with pytest.raises(ValueError):
         rtt.SortConfig(**kw)

@@ -59,6 +59,28 @@ def test_sort_and_argsort_match_jax(dtype):
                                   np.asarray(rst.argsort(jnp.asarray(keys))))
 
 
+@pytest.mark.parametrize("dtype", [np.uint16, np.int16], ids=["u16", "i16"])
+def test_16bit_keys_match_jax(dtype):
+    """16-bit keys with heavy ties and both extremes: sort, sort_kv and
+    argsort give the JAX package's results (two 8-bit passes here)."""
+    rng = np.random.default_rng(16)
+    info = np.iinfo(dtype)
+    keys = rng.choice(np.array([info.min, -1 if info.min else 1, 0, 7,
+                                info.max], dtype), N)
+    keys[::7] = rng.integers(info.min, info.max + 1, keys[::7].size)
+    vals = np.arange(N, dtype=np.int32)
+    tk = tdt.tensor_from_numpy(keys)
+    got = tdt.tensor_to_numpy(rtt.sort(tk))
+    assert got.dtype == keys.dtype
+    np.testing.assert_array_equal(got, np.asarray(rst.sort(jnp.asarray(keys))))
+    jk, jv = rst.sort_kv(jnp.asarray(keys), jnp.asarray(vals))
+    ok, ov = rtt.sort_kv(tk, torch.from_numpy(vals))
+    np.testing.assert_array_equal(tdt.tensor_to_numpy(ok), np.asarray(jk))
+    np.testing.assert_array_equal(ov.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(rtt.argsort(tk).numpy(),
+                                  golden.oracle_argsort(keys))
+
+
 def test_heavy_ties_are_stable_across_payload_widths():
     """Few distinct keys, payloads of 1, 4 and 8 bytes (bool, f32, u64) in a
     dict pytree: each rides the stable permutation unchanged."""
@@ -92,7 +114,7 @@ def test_tuple_payload_and_engines_agree():
     assert torch.equal(c_a, r_a)
 
 
-@pytest.mark.parametrize("engine", ["pallas_merge", "chunked", "xla_sort",
+@pytest.mark.parametrize("engine", ["pallas_stream", "chunked", "xla_sort",
                                     "no_such_engine"])
 def test_unported_engines_raise(engine):
     with pytest.raises(rtt.EngineError):
