@@ -31,7 +31,12 @@ launch counters set to 0 just before it and read just after:
 Every phase raises on a failure, so the exit code is non-zero and the last
 line is not printed.  The last line is the JSON object
 ``{"ok": true, "device": {...}}``; the line before it lists each kernel with
-its launch count on the two paths and its time beside the plain version's.
+its launch count on the two paths, its device time beside the plain
+version's (``ms``, ``plain_ms``: CUDA events around 50 back-to-back calls,
+divided by 50), and the time of one call with its host work
+(``call_ms``, ``plain_call_ms``: CUDA events around a single call).  A
+``torch.profiler`` line gives the scan's share of a u32 KV 2^27 sort's
+device time.
 Needs one CUDA card; exits non-zero without one.
 """
 
@@ -71,7 +76,9 @@ def require(ok, what: str) -> None:
 
 
 def time_ms(fn, reps: int = REPS) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn`` after one warm-up."""
+    """Median of ``reps`` CUDA-event timings of ``fn`` after one warm-up.
+    The window holds the host work of the call (allocation, launch) as
+    well as the device's."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -84,6 +91,34 @@ def time_ms(fn, reps: int = REPS) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def device_ms(fn, calls: int = 50, reps: int = 3) -> float:
+    """Device time of one call of ``fn``: CUDA events around ``calls``
+    back-to-back calls, divided by ``calls``; median of ``reps``.  The
+    calls queue behind a ~10 ms ``torch.cuda._sleep``, so the host has
+    enqueued them before the first starts and its work stays out of the
+    window."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(20_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return float(np.median(times))
+
+
+def timings(fn, plain) -> dict:
+    """A kernel's and its plain version's device and single-call times."""
+    return {"ms": device_ms(fn), "plain_ms": device_ms(plain),
+            "call_ms": time_ms(fn), "plain_call_ms": time_ms(plain)}
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -159,11 +194,10 @@ def phase_kernels(dev, rt, cr, cm):
     res = {k: {"max_abs_err": 0} for k in REPLACES}
     before = launch_counts()
 
-    def note(name, err, ms=None, plain_ms=None):
+    def note(name, err, times=None):
         r = res[name]
         r["max_abs_err"] = max(r["max_abs_err"], err)
-        if ms is not None:
-            r["ms"], r["plain_ms"] = ms, plain_ms
+        r.update(times or {})
 
     n = 1 << 27
     x = torch.from_numpy(rng.integers(-2**31, 2**31, n, dtype=np.int64)
@@ -178,19 +212,35 @@ def phase_kernels(dev, rt, cr, cm):
         print(f"[kernels] digit_histogram n={size} R={radix}: bit-exact",
               flush=True)
     note("digit_histogram", 0,
-         time_ms(lambda: cr.digit_histogram(x, 256, 4096, 8)),
-         time_ms(lambda: cr.digit_histogram_plain(x, 256, 4096, 8)))
+         timings(lambda: cr.digit_histogram(x, 256, 4096, 8),
+                 lambda: cr.digit_histogram_plain(x, 256, 4096, 8)))
     del x
 
-    rb = 256 * ((1 << 27) // 4096)  # the (R*B) histogram of a 2^27 sort
-    for m in (rb, 1000003):
-        y = torch.from_numpy(rng.integers(0, 4096, m).astype(np.int32)).to(dev)
+    # K2 on the (R*B) histograms of a 2^27 and a 2^25 sort (2^23 and 2^21
+    # counts), a ragged size, values that wrap int32, and a view that
+    # starts 12 bytes past a 16-byte boundary.
+    rb = 256 * ((1 << 27) // 4096)
+    wrap = torch.from_numpy(rng.integers(-2**31, 2**31, 1000003 + 3)
+                            .astype(np.int32)).to(dev)
+    cases = [(f"n={m}", torch.from_numpy(rng.integers(0, 4096, m)
+                                         .astype(np.int32)).to(dev))
+             for m in (rb, rb // 4, 1000003)]
+    cases += [("n=1000003 wrapping int32", wrap[:-3]),
+              ("n=1000003 view x[3:]", wrap[3:])]
+    for what, y in cases:
         err = max_abs_err(cr.exclusive_scan(y), cr.exclusive_scan_plain(y))
-        require(err == 0, f"exclusive_scan n={m} disagrees")
-        print(f"[kernels] exclusive_scan n={m}: bit-exact", flush=True)
-        if m == rb:
-            note("exclusive_scan", 0, time_ms(lambda: cr.exclusive_scan(y)),
-                 time_ms(lambda: cr.exclusive_scan_plain(y)))
+        require(err == 0, f"exclusive_scan {what} disagrees")
+        print(f"[kernels] exclusive_scan {what}: bit-exact", flush=True)
+    for what, y in (cases[1], cases[0]):  # the JSON line keeps 2^23's
+        t = timings(lambda: cr.exclusive_scan(y),
+                    lambda: cr.exclusive_scan_plain(y))
+        print(f"[kernels] exclusive_scan {what}: device {t['ms']:.5f} ms "
+              f"({8 * y.numel() / t['ms'] / 1e9:.3f} TB/s of 8 B an "
+              f"element), plain {t['plain_ms']:.5f} ms; one call "
+              f"{t['call_ms']:.5f} ms, plain {t['plain_call_ms']:.5f} ms",
+              flush=True)
+    note("exclusive_scan", 0, t)
+    del cases, wrap
 
     n = 1 << 22
     iota = torch.arange(n, dtype=torch.int32, device=dev)
@@ -211,10 +261,11 @@ def phase_kernels(dev, rt, cr, cm):
               f"bit-exact", flush=True)
         if ds.name == "RandomDistributed":
             note("rank_scatter", 0,
-                 time_ms(lambda: cr.rank_scatter(keys, planes, base, 256,
-                                                 4096, 0, with_dest=True)),
-                 time_ms(lambda: cr.rank_scatter_plain(
-                     keys, planes, base, 256, 4096, 0, with_dest=True)))
+                 timings(lambda: cr.rank_scatter(keys, planes, base, 256,
+                                                 4096, 0, with_dest=True),
+                         lambda: cr.rank_scatter_plain(
+                             keys, planes, base, 256, 4096, 0,
+                             with_dest=True)))
 
     # K5 and K6 at the shapes of a 2^25 key-only sort: 2048 tiles, levels
     # 0 and 10 (the last), on keys in the kernels' sign-flipped domain.
@@ -246,14 +297,15 @@ def phase_kernels(dev, rt, cr, cm):
             print(f"[kernels] merge_level n={n} level {level} {ds.name} "
                   f"(splits + output): bit-exact", flush=True)
         if ds.name == "RandomDistributed":
-            note("tile_sort", 0, time_ms(lambda: cm.tile_sort(x)),
-                 time_ms(lambda: cm.tile_sort_plain(x)))
+            note("tile_sort", 0, timings(lambda: cm.tile_sort(x),
+                                         lambda: cm.tile_sort_plain(x)))
             xin = level_in[0]
-            ms0 = time_ms(lambda: cm.merge_level(xin, 0))
+            ms0 = device_ms(lambda: cm.merge_level(xin, 0))
             xin = level_in[last]
-            note("merge_level", 0, time_ms(lambda: cm.merge_level(xin, last)),
-                 time_ms(lambda: cm.merge_level_plain(
-                     xin, *cm.level_splits_plain(xin, last))))
+            note("merge_level", 0,
+                 timings(lambda: cm.merge_level(xin, last),
+                         lambda: cm.merge_level_plain(
+                             xin, *cm.level_splits_plain(xin, last))))
             print(f"[kernels] merge_level n={n}: level 0 {ms0:.3f} ms, level "
                   f"{last} {res['merge_level']['ms']:.3f} ms (plain "
                   f"{res['merge_level']['plain_ms']:.3f} ms); tile_sort "
@@ -320,6 +372,36 @@ def phase_sort(dev, rt):
         results.append((what, ms, ms_t))
         del keys, ko, perm
     return results
+
+
+def phase_scan_share(dev, rt):
+    """torch.profiler over a u32 KV sort at 2^27: the exclusive_scan
+    kernel's (and its scratch memsets') share of the sort's device time."""
+    n = 1 << 27
+    keys = rt.dtypes.tensor_from_numpy(
+        rt.datasets.RandomDistributed(np.uint32, seed=0).generate(n), dev)
+    iota = torch.arange(n, dtype=torch.int32, device=dev)
+    rt.sort_kv(keys, iota)
+    torch.cuda.synchronize()
+    iters = 3
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            rt.sort_kv(keys, iota)
+        torch.cuda.synchronize()
+    rows = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    require(rows, "profiler recorded no device time")
+    total = sum(e.device_time_total for e in rows) / iters / 1e3
+    scan = [e for e in rows if "exclusive_scan_kernel" in e.name]
+    scan_ms = sum(e.device_time_total for e in scan) / iters / 1e3
+    memset_ms = sum(e.device_time_total for e in rows
+                    if e.name.startswith("Memset")) / iters / 1e3
+    require(scan, "no exclusive_scan kernel in the sort's profile")
+    print(f"[profile] sort_kv u32 RandomDistributed 2^27: device "
+          f"{total:.4f} ms a sort; exclusive_scan {len(scan) / iters:g} "
+          f"launches, {scan_ms:.4f} ms (+ memsets {memset_ms:.4f} ms), "
+          f"share {scan_ms / total:.4f}", flush=True)
 
 
 def phase_config3(dev, rt):
@@ -503,6 +585,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     radix_kernels = ("digit_histogram", "exclusive_scan", "rank_scatter")
     radix = run_path("radix", (lambda: phase_sort(dev, rt),
+                               lambda: phase_scan_share(dev, rt),
                                lambda: phase_config3(dev, rt),
                                lambda: phase_config4(dev, rt)), radix_kernels)
     merge = run_path("merge", (lambda: phase_merge(dev, rt),
@@ -518,7 +601,8 @@ def main() -> int:
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                "plain_ms": r["plain_ms"]}
+                "plain_ms": r["plain_ms"], "call_ms": r["call_ms"],
+                "plain_call_ms": r["plain_call_ms"]}
                for name, r in kernel_res.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

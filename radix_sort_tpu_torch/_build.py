@@ -34,9 +34,9 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _SIGNATURES = {
     "rst_max_planes": ([], _I),
-    "rst_scan_chunk": ([], _I),
+    "rst_scan_scratch_bytes": ([_LL], _LL),
     "rst_digit_histogram": ([_P, _LL, _I, _I, _I, _I, _P, _LL, _LL, _P], _I),
-    "rst_exclusive_scan": ([_P, _LL, _P, _P, _P], _I),
+    "rst_exclusive_scan": ([_P, _LL, _P, _P, _LL, _P], _I),
     "rst_rank_scatter": ([_P, _LL, _I, _I, _I, _I, _P,
                           ctypes.POINTER(_P), ctypes.POINTER(_P), _I, _P, _P],
                          _I),

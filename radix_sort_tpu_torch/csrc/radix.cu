@@ -5,6 +5,7 @@
 //   digit_histogram  per-tile digit counts, written digit-major (R, B)
 //   exclusive_scan   exclusive prefix sum of the flat (R * B) counts; the
 //                    digit-major order is what makes the scatter stable
+//                    (one single-pass launch after a memset of its scratch)
 //   rank_scatter     per-tile stable rank of every element, then a scatter
 //                    of the digit plane and every payload plane through a
 //                    shared-memory staging tile
@@ -29,40 +30,6 @@ struct Planes {
   const int32_t* in[kMaxPlanes];
   int32_t* out[kMaxPlanes];
 };
-
-// Exclusive scan across one CTA of THREADS threads.  `scratch` holds at
-// least THREADS / 32 + 1 words of shared memory; the CTA total lands in
-// scratch[THREADS / 32].  Every thread of the CTA must call it.  Unsigned
-// arithmetic gives defined wraparound, the same as an int32 cumsum.
-template <int THREADS>
-__device__ unsigned block_exclusive_scan(unsigned v, unsigned* scratch) {
-  constexpr int kWarps = THREADS / 32;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  unsigned incl = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    unsigned y = __shfl_up_sync(0xFFFFFFFFu, incl, o);
-    if (lane >= o) incl += y;
-  }
-  if (lane == 31) scratch[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    unsigned s = lane < kWarps ? scratch[lane] : 0u;
-    unsigned si = s;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      unsigned y = __shfl_up_sync(0xFFFFFFFFu, si, o);
-      if (lane >= o) si += y;
-    }
-    if (lane < kWarps) scratch[lane] = si - s;
-    if (lane == kWarps - 1) scratch[kWarps] = si;
-  }
-  __syncthreads();
-  unsigned r = incl - v + scratch[warp];
-  __syncthreads();  // scratch may be reused by the caller right away
-  return r;
-}
 
 // ------------------------------------------------------------ histogram
 //
@@ -101,61 +68,240 @@ __global__ void digit_histogram_kernel(const int32_t* __restrict__ x,
 
 // ----------------------------------------------------------------- scan
 //
-// Replaces radix_sort_tpu/ops/pallas_radix.py:exclusive_scan (_scan_kernel).
-// The TPU kernel carried a running sum across a sequential grid; CTAs run
-// in no order here, so the scan is reduce -> scan the per-chunk partials in
-// one CTA -> rescan each chunk with its partial added.  Bound by bytes: it
-// reads the input twice and writes it once, which is small beside a radix
-// pass (the input is the (R * B) histogram, R * 4 bytes per tile).
+// Replaces radix_sort_tpu/ops/pallas_radix.py:217 exclusive_scan
+// (_scan_kernel).  The TPU kernel carried a running sum across a
+// sequential grid; CTAs run in no order here, so one launch scans the
+// input in a single pass with decoupled look-back (Merrill & Garland,
+// "Single-pass Parallel Prefix Scan with Decoupled Look-back", NVIDIA
+// 2016).
+//
+// Bound by bytes: every element is read once and written once, 8 bytes an
+// element (64 MB at 2^23, the digit-major (R * B) histogram of a 2^27
+// sort), where the three launches it replaces moved 96 MB.  What the
+// design does about that bound:
+//
+//   - One CTA a tile of 8192 elements (32 KB), and its tile id comes from
+//     a global counter in the order CTAs start, not from blockIdx: every
+//     tile it waits for belongs to a CTA that is already running, so the
+//     single pass always makes progress.
+//   - The tile arrives in shared memory by 16-byte cp.async copies,
+//     striped over the CTA so a warp reads 512 consecutive bytes, and
+//     leaves the same way after the scan.  The chunks are XOR-swizzled, so
+//     the striped copies and each thread's reads of its own 32 consecutive
+//     elements are both free of bank conflicts.  Four CTAs an SM keep
+//     128 KB of loads in flight while others scan and look back.
+//   - Each tile publishes its aggregate as soon as it is summed, then one
+//     warp reads the status words of 32 predecessors a step until it meets
+//     an inclusive prefix, and publishes its own.  A status word is 64
+//     bits, {flag, value}, stored with release and loaded with acquire at
+//     device scope, so a flag is never seen without its value.
+//
+// Alternatives measured on an H100 80GB HBM3 at 700 W (PERF.md keeps the
+// numbers): persistent CTAs with a two-stage copy ring were about 4x
+// slower, because a tile whose id a CTA holds ahead publishes nothing
+// until that CTA reaches it, so every later tile spins behind it;
+// 4096-element tiles were 12% slower; reading 128 or 256 predecessors a
+// step, relaxed loads, and a backoff in the spin gained nothing or lost.
+//
+// Tiles are cut from the 16-byte boundary at or below x, so a view that
+// starts mid-vector (x[1:]) still loads whole tiles with 16-byte copies:
+// its first `lead` elements belong to tile 0, which, like the ragged last
+// tile, loads and stores element by element.  Values are unsigned, so the
+// sums wrap exactly like an int32 cumsum.
 constexpr int kScanThreads = 256;
-constexpr int kScanItems = 16;
-constexpr int kScanChunk = kScanThreads * kScanItems;
+constexpr int kScanWarps = kScanThreads / 32;
+constexpr int kScanItems = 32;  // consecutive elements a thread
+constexpr int kScanChunks = kScanItems / 4;  // 16-byte chunks a thread
+constexpr int kScanTile = kScanThreads * kScanItems;  // 8192 int32, 32 KB
+constexpr int kScanVecs = kScanTile / 4;              // 16-byte chunks
+constexpr unsigned long long kTileAggregate = 1ull << 32;
+constexpr unsigned long long kTilePrefix = 2ull << 32;
 
-__global__ void scan_reduce_kernel(const int32_t* __restrict__ x, int64_t n,
-                                   int32_t* __restrict__ partials) {
-  __shared__ unsigned scratch[kScanThreads / 32 + 1];
-  const int64_t start = (int64_t)blockIdx.x * kScanChunk;
-  unsigned s = 0;
-  for (int i = threadIdx.x; i < kScanChunk; i += kScanThreads) {
-    const int64_t g = start + i;
-    if (g < n) s += (unsigned)x[g];
-  }
-  block_exclusive_scan<kScanThreads>(s, scratch);
-  if (threadIdx.x == 0) partials[blockIdx.x] = (int32_t)scratch[kScanThreads / 32];
+// Chunk c of a tile lives at scan_swizzle(c): eight threads reading their
+// own chunk k (blocked) or eight consecutive chunks (striped) hit eight
+// different 16-byte bank groups.
+__device__ __forceinline__ int scan_swizzle(int c) {
+  return c ^ ((c >> 3) & (kScanChunks - 1));
 }
 
-// One CTA scans all partials in place, kScanThreads at a time with a carry.
-__global__ void scan_partials_kernel(int32_t* __restrict__ partials,
-                                     int64_t nparts) {
-  __shared__ unsigned scratch[kScanThreads / 32 + 1];
-  unsigned carry = 0;
-  for (int64_t off = 0; off < nparts; off += kScanThreads) {
-    const int64_t g = off + threadIdx.x;
-    const unsigned v = g < nparts ? (unsigned)partials[g] : 0u;
-    const unsigned e = block_exclusive_scan<kScanThreads>(v, scratch);
-    const unsigned total = scratch[kScanThreads / 32];
-    if (g < nparts) partials[g] = (int32_t)(e + carry);
-    carry += total;
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long load_acquire(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];\n"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_release(unsigned long long* p,
+                                              unsigned long long v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;\n" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+// Run by all 32 lanes of one warp.  Publishes tile t's aggregate, sums the
+// predecessors' status words back to the nearest inclusive prefix, then
+// publishes t's inclusive prefix.  Returns t's exclusive prefix.
+__device__ unsigned scan_look_back(unsigned long long* status, int t,
+                                   unsigned aggregate, int lane) {
+  if (t == 0) {
+    if (lane == 0) store_release(&status[0], kTilePrefix | aggregate);
+    return 0u;
+  }
+  if (lane == 0) store_release(&status[t], kTileAggregate | aggregate);
+  unsigned prefix = 0;
+  for (int window = t - 32;; window -= 32) {
+    const int p = window + lane;  // lane 31 is the nearest predecessor
+    unsigned long long w;
+    do {  // before tile 0 reads as an inclusive prefix of 0
+      w = p < 0 ? kTilePrefix : load_acquire(&status[p]);
+    } while (__any_sync(0xFFFFFFFFu, (w >> 32) == 0));
+    // the nearest inclusive prefix and the aggregates after it; with none
+    // in the window, every aggregate, and look further back
+    const unsigned inclusive = __ballot_sync(0xFFFFFFFFu, (w >> 32) == 2);
+    const int nearest = inclusive ? 31 - __clz(inclusive) : 0;
+    unsigned v = lane >= nearest ? (unsigned)w : 0u;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xFFFFFFFFu, v, o);
+    prefix += v;
+    if (inclusive) break;
+  }
+  if (lane == 0) store_release(&status[t], kTilePrefix | (prefix + aggregate));
+  return prefix;
+}
+
+// Tile t lies whole inside [lead, lead + n) of the 16-byte-aligned frame.
+__device__ __forceinline__ bool scan_whole(int t, int lead, int64_t n) {
+  return (int64_t)t * kScanTile >= lead &&
+         (int64_t)(t + 1) * kScanTile <= n + lead;
+}
+
+// One CTA a tile.  status: ntiles zeroed words; counter: a zeroed tile-id
+// counter.  x - lead is 16-byte aligned; vec_out says whether out - lead
+// is too.
+__global__ void __launch_bounds__(kScanThreads)
+exclusive_scan_kernel(const int32_t* __restrict__ x, int64_t n, int lead,
+                      int32_t* __restrict__ out, bool vec_out,
+                      unsigned long long* __restrict__ status,
+                      unsigned* __restrict__ counter) {
+  __shared__ int4 buf[kScanVecs];
+  __shared__ unsigned warp_sum[kScanWarps];
+  __shared__ unsigned tile_prefix;
+  __shared__ int tile_id;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  // Tile ids in the order CTAs start, not blockIdx: every tile this one
+  // waits for belongs to a CTA that is already running.
+  if (tid == 0) tile_id = (int)atomicAdd(counter, 1u);
+  __syncthreads();
+  const int t = tile_id;
+  const bool is_whole = scan_whole(t, lead, n);
+  const int64_t tile_start = (int64_t)t * kScanTile - lead;  // in x
+
+  unsigned v[kScanItems];
+  if (is_whole) {
+    const int4* src = reinterpret_cast<const int4*>(x + tile_start);
+#pragma unroll
+    for (int j = 0; j < kScanVecs / kScanThreads; ++j) {
+      const int c = j * kScanThreads + tid;
+      cp_async16(&buf[scan_swizzle(c)], src + c);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
     __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kScanChunks; ++k) {
+      const int4 q = buf[scan_swizzle(tid * kScanChunks + k)];
+      v[4 * k] = (unsigned)q.x;
+      v[4 * k + 1] = (unsigned)q.y;
+      v[4 * k + 2] = (unsigned)q.z;
+      v[4 * k + 3] = (unsigned)q.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kScanItems; ++i) {
+      const int64_t e = tile_start + tid * kScanItems + i;
+      v[i] = (e >= 0 && e < n) ? (unsigned)x[e] : 0u;
+    }
+  }
+  // serial exclusive scan of the thread's items, then a warp scan of the
+  // thread totals, then one step across warps
+  unsigned total = 0;
+#pragma unroll
+  for (int i = 0; i < kScanItems; ++i) {
+    const unsigned xi = v[i];
+    v[i] = total;
+    total += xi;
+  }
+  unsigned incl = total;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned y = __shfl_up_sync(0xFFFFFFFFu, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (lane == 31) warp_sum[warp] = incl;
+  __syncthreads();
+  unsigned before = 0, aggregate = 0;
+#pragma unroll
+  for (int w = 0; w < kScanWarps; ++w) {
+    const unsigned ws = warp_sum[w];
+    before += w < warp ? ws : 0u;
+    aggregate += ws;
+  }
+  if (warp == 0) {
+    const unsigned p = scan_look_back(status, t, aggregate, lane);
+    if (lane == 0) tile_prefix = p;
+  }
+  __syncthreads();
+  const unsigned off = tile_prefix + before + incl - total;
+
+  // Stage the results in shared memory (the same swizzled chunks), then
+  // store them striped over the CTA.
+#pragma unroll
+  for (int k = 0; k < kScanChunks; ++k)
+    buf[scan_swizzle(tid * kScanChunks + k)] =
+        make_int4((int)(off + v[4 * k]), (int)(off + v[4 * k + 1]),
+                  (int)(off + v[4 * k + 2]), (int)(off + v[4 * k + 3]));
+  __syncthreads();
+  if (is_whole && vec_out) {
+    int4* dst = reinterpret_cast<int4*>(out + tile_start);
+#pragma unroll
+    for (int j = 0; j < kScanVecs / kScanThreads; ++j) {
+      const int c = j * kScanThreads + tid;
+      dst[c] = buf[scan_swizzle(c)];
+    }
+  } else {
+    const int32_t* r = reinterpret_cast<const int32_t*>(buf);
+#pragma unroll
+    for (int j = 0; j < kScanItems; ++j) {
+      const int i = j * kScanThreads + tid;
+      const int64_t e = tile_start + i;
+      if (e >= 0 && e < n) out[e] = r[scan_swizzle(i >> 2) * 4 + (i & 3)];
+    }
   }
 }
 
-__global__ void scan_apply_kernel(const int32_t* __restrict__ x, int64_t n,
-                                  const int32_t* __restrict__ partials,
-                                  int32_t* __restrict__ out) {
-  __shared__ unsigned scratch[kScanThreads / 32 + 1];
-  const int64_t start = (int64_t)blockIdx.x * kScanChunk;
-  unsigned carry = (unsigned)partials[blockIdx.x];
-  // kScanItems rounds of kScanThreads consecutive elements: coalesced loads.
-  for (int r = 0; r < kScanItems; ++r) {
-    const int64_t g = start + (int64_t)r * kScanThreads + threadIdx.x;
-    const unsigned v = g < n ? (unsigned)x[g] : 0u;
-    const unsigned e = block_exclusive_scan<kScanThreads>(v, scratch);
-    const unsigned total = scratch[kScanThreads / 32];
-    if (g < n) out[g] = (int32_t)(e + carry);
-    carry += total;
-    __syncthreads();
-  }
+long long scan_tiles(long long n, int lead) {
+  return (n + lead + kScanTile - 1) / kScanTile;
 }
 
 // ---------------------------------------------------------- rank + scatter
@@ -335,19 +481,31 @@ int rst_digit_histogram(const void* x, long long n, int tile, int threads,
   return (int)cudaGetLastError();
 }
 
-int rst_scan_chunk() { return kScanChunk; }
+// Bytes of scratch rst_exclusive_scan needs for n elements, whatever the
+// alignment of x: a tile-id counter, then one status word a tile.
+long long rst_scan_scratch_bytes(long long n) {
+  return n <= 0 ? 0 : 8 * (1 + scan_tiles(n, 3));
+}
 
-// `partials` is scratch of ceil(n / rst_scan_chunk()) int32.
-int rst_exclusive_scan(const void* x, long long n, void* out, void* partials,
-                       void* stream) {
-  if (n <= 0) return (int)cudaErrorInvalidValue;
-  const long long nparts = (n + kScanChunk - 1) / kScanChunk;
+// One memset of the scratch and one launch, both on `stream`, so scans on
+// two streams with two scratch buffers share no state.
+int rst_exclusive_scan(const void* x, long long n, void* out, void* scratch,
+                       long long scratch_bytes, void* stream) {
+  const uintptr_t xa = (uintptr_t)x;
+  if (n <= 0 || n >= (1ll << 31) || xa % 4 || (uintptr_t)out % 4 ||
+      (uintptr_t)scratch % 8)
+    return (int)cudaErrorInvalidValue;
+  const int lead = (int)(xa % 16 / 4);
+  const long long ntiles = scan_tiles(n, lead);
+  const long long bytes = 8 * (1 + ntiles);
+  if (bytes > scratch_bytes) return (int)cudaErrorInvalidValue;
+  const bool vec_out = ((uintptr_t)out - 4u * (unsigned)lead) % 16 == 0;
   cudaStream_t s = (cudaStream_t)stream;
-  scan_reduce_kernel<<<(unsigned)nparts, kScanThreads, 0, s>>>(
-      (const int32_t*)x, n, (int32_t*)partials);
-  scan_partials_kernel<<<1, kScanThreads, 0, s>>>((int32_t*)partials, nparts);
-  scan_apply_kernel<<<(unsigned)nparts, kScanThreads, 0, s>>>(
-      (const int32_t*)x, n, (const int32_t*)partials, (int32_t*)out);
+  cudaError_t e = cudaMemsetAsync(scratch, 0, (size_t)bytes, s);
+  if (e != cudaSuccess) return (int)e;
+  exclusive_scan_kernel<<<(unsigned)ntiles, kScanThreads, 0, s>>>(
+      (const int32_t*)x, n, lead, (int32_t*)out, vec_out,
+      (unsigned long long*)scratch + 1, (unsigned*)scratch);
   return (int)cudaGetLastError();
 }
 

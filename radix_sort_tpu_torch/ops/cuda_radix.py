@@ -114,9 +114,10 @@ digit_histogram.launches = 0
 
 # ------------------------------------------------------------------ K2
 #
-# Replaces pallas_radix.exclusive_scan (_scan_kernel).  Reduce, scan the
-# partials in one CTA, rescan with the partials added: three launches,
-# counted as one call of the kernel.
+# Replaces pallas_radix.exclusive_scan (_scan_kernel).  One single-pass
+# launch with decoupled look-back; its scratch (a tile-id counter and one
+# status word a tile) is allocated here for each call and zeroed by the C
+# entry point on the same stream, so calls on two streams share nothing.
 
 def exclusive_scan_plain(x: torch.Tensor) -> torch.Tensor:
     # dtype= keeps the int32 wraparound (torch.cumsum would give int64).
@@ -124,7 +125,8 @@ def exclusive_scan_plain(x: torch.Tensor) -> torch.Tensor:
 
 
 def exclusive_scan(x: torch.Tensor) -> torch.Tensor:
-    """Exclusive prefix sum of a 1-D int32 tensor (wrapping like int32)."""
+    """Exclusive prefix sum of a 1-D int32 tensor (wrapping like int32).
+    A view may start anywhere (``x[1:]``); the output is a new tensor."""
     _check_plane(x, "exclusive_scan input")
     if not _on_cuda(x):
         return exclusive_scan_plain(x)
@@ -132,11 +134,11 @@ def exclusive_scan(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(x)
     if n:
         lib = _build.lib()
-        parts = torch.empty(-(-n // lib.rst_scan_chunk()), dtype=torch.int32,
-                            device=x.device)
+        nbytes = lib.rst_scan_scratch_bytes(n)
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
         _build.check(lib.rst_exclusive_scan(
-            x.data_ptr(), n, out.data_ptr(), parts.data_ptr(), _stream(x)),
-            "exclusive_scan")
+            x.data_ptr(), n, out.data_ptr(), scratch.data_ptr(), nbytes,
+            _stream(x)), "exclusive_scan")
         exclusive_scan.launches += 1
     return out
 

@@ -16,6 +16,7 @@ from radix_sort_tpu_torch.ops import cuda_radix as cr
 from radix_sort_tpu_torch.status import EngineError
 
 TILE = 2048  # 16 rows x 128 lanes on the TPU side; one CTA tile here
+SCAN_TILE = 8192  # one CTA's tile of the CUDA scan (csrc/radix.cu kScanTile)
 
 
 @pytest.fixture
@@ -55,6 +56,19 @@ def test_exclusive_scan_matches_pallas(n):
     want = np.asarray(pr.exclusive_scan(jnp.asarray(x)))
     got = cr.exclusive_scan(torch.from_numpy(x))
     assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("n", [SCAN_TILE // 2 - 1, SCAN_TILE // 2,
+                               SCAN_TILE // 2 + 1, SCAN_TILE - 1, SCAN_TILE,
+                               SCAN_TILE + 1, (1 << 16) + 3])
+def test_exclusive_scan_wrapping_matches_pallas(n):
+    """Full-range values, so the prefix wraps int32 many times, at sizes
+    around the CUDA kernel's tiles."""
+    rng = np.random.default_rng(n)
+    x = rng.integers(-2**31, 2**31, size=n).astype(np.int32)
+    want = np.asarray(pr.exclusive_scan(jnp.asarray(x)))
+    got = cr.exclusive_scan(torch.from_numpy(x))
     np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -181,6 +195,68 @@ def test_cuda_exclusive_scan_matches_plain(cuda_device, n):
         cuda_device)
     torch.testing.assert_close(cr.exclusive_scan(x),
                                cr.exclusive_scan_plain(x), rtol=0, atol=0)
+
+
+def _scan_input(n, fill, device):
+    if fill == "random":
+        x = np.random.default_rng(n).integers(-2**31, 2**31, n)
+        return torch.from_numpy(x.astype(np.int32)).to(device)
+    v = 0 if fill == "zeros" else 2**31 - 1
+    return torch.full((n,), v, dtype=torch.int32, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", ["random", "zeros", "max"])
+@pytest.mark.parametrize("n", [1, 31, SCAN_TILE - 1, SCAN_TILE,
+                               SCAN_TILE + 1, 2 * SCAN_TILE + 5, 1000003,
+                               1 << 21, 1 << 23, 1 << 27])
+def test_cuda_exclusive_scan_bit_exact(cuda_device, n, fill):
+    """One launch a call, bit-exact against the plain cumsum, wrapping."""
+    x = _scan_input(n, fill, cuda_device)
+    before = cr.exclusive_scan.launches
+    got = cr.exclusive_scan(x)
+    assert cr.exclusive_scan.launches == before + 1
+    torch.testing.assert_close(got, cr.exclusive_scan_plain(x), rtol=0,
+                               atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("n", [5, SCAN_TILE + 7, 1000003])
+def test_cuda_exclusive_scan_misaligned_view(cuda_device, offset, n):
+    """A view that starts off a 16-byte boundary: an unaligned head in the
+    first tile, whole tiles after it."""
+    base = _scan_input(n + offset, "random", cuda_device)
+    x = base[offset:]
+    assert x.data_ptr() % 16 != 0
+    torch.testing.assert_close(cr.exclusive_scan(x),
+                               cr.exclusive_scan_plain(x), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_exclusive_scan_scratch_is_reset(cuda_device):
+    """The same tensor three times in a row: each call zeroes its scratch."""
+    x = _scan_input(1 << 23, "random", cuda_device)
+    want = cr.exclusive_scan_plain(x)
+    outs = [cr.exclusive_scan(x) for _ in range(3)]
+    for got in outs:
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_exclusive_scan_two_streams(cuda_device):
+    """Two scans enqueued on two streams before one synchronise."""
+    a = _scan_input(1 << 23, "random", cuda_device)
+    b = _scan_input((1 << 23) + 5, "random", cuda_device)
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    with torch.cuda.stream(s1):
+        ra = cr.exclusive_scan(a)
+    with torch.cuda.stream(s2):
+        rb = cr.exclusive_scan(b)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(ra, cr.exclusive_scan_plain(a), rtol=0, atol=0)
+    torch.testing.assert_close(rb, cr.exclusive_scan_plain(b), rtol=0, atol=0)
 
 
 @pytest.mark.cuda
