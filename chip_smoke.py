@@ -3,9 +3,13 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels of ``radix_sort_tpu_torch`` from ``csrc/`` (into
-``build/kernels/``) and the native host baselines of ``native/`` where a
-C++ compiler is present, holds each kernel bit-exact against its plain
-torch version at the shapes the main path gives it, then runs two paths at
+``build/kernels/``, one ``nvcc`` a source, started together) and the native
+host baselines of ``native/`` where a C++ compiler is present, holds each
+kernel bit-exact against its plain torch version at the shapes the main
+path gives it (the onesweep pass in look-back mode at u32 KV 2^27 on
+RandomDistributed and Zeros, u64 KV 2^27, a ragged n, 17 planes and the
+partition's pass; ``pass_histograms`` at 2^27 for 32- and 64-bit keys;
+``rank_scatter`` in base-table mode at 2^22), then runs two paths at
 BASELINE sizes through the public entry points, each with the kernels'
 launch counters set to 0 just before it and read just after:
 
@@ -13,6 +17,9 @@ launch counters set to 0 just before it and read just after:
   - ``sort_kv``: u32 keys + int32 iota payload at 2^27 over the five
     ``datasets`` distributions, u64 keys at 2^27, and ``sort`` u32 key-only
     at 2^25, each timed beside ``engine="torch_sort"`` (torch.sort);
+  - ``[profile]``: a u32 KV 2^27 sort's launches (1 ``pass_histograms``,
+    4 ``onesweep_pass``), host reads (1) and device time by kernel, and the
+    idle share of back-to-back u32 key-only sorts at 2^25;
   - config 3: ``filter_expr(k < 500)`` → ``hash_aggregate(count, sum)`` over
     2^26 rows, checked against ``np.bincount``;
   - config 4: ``hash_join`` of a 2^20-row probe against a 2^18-row unique
@@ -33,10 +40,10 @@ line is not printed.  The last line is the JSON object
 ``{"ok": true, "device": {...}}``; the line before it lists each kernel with
 its launch count on the two paths, its device time beside the plain
 version's (``ms``, ``plain_ms``: CUDA events around 50 back-to-back calls,
-divided by 50), and the time of one call with its host work
-(``call_ms``, ``plain_call_ms``: CUDA events around a single call).  A
-``torch.profiler`` line gives the scan's share of a u32 KV 2^27 sort's
-device time.
+divided by 50), its bound (``bound_ms``: the bytes it must move at 3.35
+TB/s), the time of one PyTorch call that computes the same function where
+there is one (``library_ms``), and the time of one call with its host work
+(``call_ms``, ``plain_call_ms``: CUDA events around a single call).
 Needs one CUDA card; exits non-zero without one.
 """
 
@@ -53,17 +60,28 @@ import torch
 RADIX_CU = "radix_sort_tpu_torch/csrc/radix.cu"
 MERGE_CU = "radix_sort_tpu_torch/csrc/merge.cu"
 SOURCES = {"digit_histogram": RADIX_CU, "exclusive_scan": RADIX_CU,
-           "rank_scatter": RADIX_CU, "tile_sort": MERGE_CU,
+           "rank_scatter": RADIX_CU, "pass_histograms": RADIX_CU,
+           "onesweep_pass": RADIX_CU, "tile_sort": MERGE_CU,
            "merge_level": MERGE_CU}
+K3_K4 = ("radix_sort_tpu/ops/pallas_radix.py:263; "
+         "radix_sort_tpu/ops/pallas_stream.py:427")
 REPLACES = {
     "digit_histogram": "radix_sort_tpu/ops/pallas_radix.py:140",
     "exclusive_scan": "radix_sort_tpu/ops/pallas_radix.py:217",
-    "rank_scatter": ("radix_sort_tpu/ops/pallas_radix.py:263; "
-                     "radix_sort_tpu/ops/pallas_stream.py:427"),
+    "rank_scatter": K3_K4,  # base-table mode
+    "pass_histograms": "radix_sort_tpu/ops/pallas_radix.py:140",
+    "onesweep_pass": K3_K4,  # look-back mode of the same kernel
     "tile_sort": "radix_sort_tpu/ops/pallas_merge.py:265",
     "merge_level": "radix_sort_tpu/ops/pallas_merge.py:283",
 }
 REPS = 5
+HBM_BYTES_PER_MS = 3.35e9  # H100 SXM device memory, 3.35 TB/s
+
+
+def bound_ms(nbytes: int) -> float:
+    """Least time to move ``nbytes`` (each input read once, each output
+    written once) at the card's memory rate."""
+    return nbytes / HBM_BYTES_PER_MS
 
 
 class SmokeFailure(RuntimeError):
@@ -189,15 +207,21 @@ def phase_build():
 
 
 def phase_kernels(dev, rt, cr, cm):
-    """Each kernel against its plain version on the same card tensors."""
+    """Each kernel against its plain version on the same card tensors,
+    timed at the main path's shapes beside its bound and, where one
+    PyTorch call computes the same function, that call."""
     rng = np.random.default_rng(0)
-    res = {k: {"max_abs_err": 0} for k in REPLACES}
+    res = {k: {"max_abs_err": 0, "library_ms": None} for k in REPLACES}
     before = launch_counts()
 
-    def note(name, err, times=None):
+    def note(name, err, times=None, nbytes=None, library=None):
         r = res[name]
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r.update(times or {})
+        if nbytes is not None:
+            r["bound_ms"], r["bound_by"] = bound_ms(nbytes), "bytes"
+        if library is not None:
+            r["library_ms"] = device_ms(library)
 
     n = 1 << 27
     x = torch.from_numpy(rng.integers(-2**31, 2**31, n, dtype=np.int64)
@@ -213,8 +237,29 @@ def phase_kernels(dev, rt, cr, cm):
               flush=True)
     note("digit_histogram", 0,
          timings(lambda: cr.digit_histogram(x, 256, 4096, 8),
-                 lambda: cr.digit_histogram_plain(x, 256, 4096, 8)))
-    del x
+                 lambda: cr.digit_histogram_plain(x, 256, 4096, 8)),
+         nbytes=4 * n + 4 * 256 * (n // 4096))
+
+    # pass_histograms: every pass of a u32 and of a u64 key at 2^27, one
+    # launch each (R = 256), and R = 2 / 16 over one plane
+    hi = torch.from_numpy(rng.integers(0, 1 << 20, n).astype(np.int32)).to(dev)
+    cases = [("u32 2^27 (4 passes)", (x,), (4,), 256),
+             ("u64 2^27 (lo + hi, 8 passes)", (x, hi), (4, 4), 256),
+             ("u32 2^27 R=16 (8 passes)", (x,), (8,), 16),
+             ("u32 2^26 R=2 (32 passes)", (x[:1 << 26],), (32,), 2)]
+    for what, planes, passes, radix in cases:
+        err = max_abs_err(cr.pass_histograms(planes, passes, radix),
+                          cr.pass_histograms_plain(planes, passes, radix))
+        require(err == 0, f"pass_histograms {what} disagrees")
+        print(f"[kernels] pass_histograms {what}: bit-exact", flush=True)
+    t = timings(lambda: cr.pass_histograms((x,), (4,), 256),
+                lambda: cr.pass_histograms_plain((x,), (4,), 256))
+    note("pass_histograms", 0, t, nbytes=4 * n + 4 * 4 * 256)
+    t64 = device_ms(lambda: cr.pass_histograms((x, hi), (4, 4), 256))
+    print(f"[kernels] pass_histograms u32 2^27: device {t['ms']:.5f} ms "
+          f"(bound {res['pass_histograms']['bound_ms']:.5f} ms), plain "
+          f"{t['plain_ms']:.5f} ms; u64 2^27: {t64:.5f} ms", flush=True)
+    del x, hi
 
     # K2 on the (R*B) histograms of a 2^27 and a 2^25 sort (2^23 and 2^21
     # counts), a ragged size, values that wrap int32, and a view that
@@ -239,9 +284,11 @@ def phase_kernels(dev, rt, cr, cm):
               f"element), plain {t['plain_ms']:.5f} ms; one call "
               f"{t['call_ms']:.5f} ms, plain {t['plain_call_ms']:.5f} ms",
               flush=True)
-    note("exclusive_scan", 0, t)
+    note("exclusive_scan", 0, t, nbytes=8 * y.numel(),
+         library=lambda: torch.cumsum(y, 0, dtype=torch.int32))
     del cases, wrap
 
+    # rank_scatter in base-table mode, as PRs 1-3 held it, at 2^22
     n = 1 << 22
     iota = torch.arange(n, dtype=torch.int32, device=dev)
     for ds in (rt.datasets.RandomDistributed(np.uint32, seed=0),
@@ -265,7 +312,11 @@ def phase_kernels(dev, rt, cr, cm):
                                                  4096, 0, with_dest=True),
                          lambda: cr.rank_scatter_plain(
                              keys, planes, base, 256, 4096, 0,
-                             with_dest=True)))
+                             with_dest=True)),
+                 nbytes=4 * 7 * n + 4 * base.numel())
+    del keys, planes, base, outs, dest, pouts, pdest, iota
+
+    phase_onesweep(dev, rt, cr, note, res)
 
     # K5 and K6 at the shapes of a 2^25 key-only sort: 2048 tiles, levels
     # 0 and 10 (the last), on keys in the kernels' sign-flipped domain.
@@ -298,25 +349,89 @@ def phase_kernels(dev, rt, cr, cm):
                   f"(splits + output): bit-exact", flush=True)
         if ds.name == "RandomDistributed":
             note("tile_sort", 0, timings(lambda: cm.tile_sort(x),
-                                         lambda: cm.tile_sort_plain(x)))
+                                         lambda: cm.tile_sort_plain(x)),
+                 nbytes=8 * n,
+                 library=lambda: torch.sort(x.view(-1, cm.TILE), dim=-1,
+                                            stable=True))
             xin = level_in[0]
             ms0 = device_ms(lambda: cm.merge_level(xin, 0))
             xin = level_in[last]
             note("merge_level", 0,
                  timings(lambda: cm.merge_level(xin, last),
                          lambda: cm.merge_level_plain(
-                             xin, *cm.level_splits_plain(xin, last))))
+                             xin, *cm.level_splits_plain(xin, last))),
+                 nbytes=8 * n + 12 * (n // cm.TILE))
             print(f"[kernels] merge_level n={n}: level 0 {ms0:.3f} ms, level "
                   f"{last} {res['merge_level']['ms']:.3f} ms (plain "
                   f"{res['merge_level']['plain_ms']:.3f} ms); tile_sort "
                   f"{res['tile_sort']['ms']:.3f} ms (plain "
-                  f"{res['tile_sort']['plain_ms']:.3f} ms)", flush=True)
+                  f"{res['tile_sort']['plain_ms']:.3f} ms, torch.sort of "
+                  f"the tiles {res['tile_sort']['library_ms']:.3f} ms)",
+                  flush=True)
         del keys, x, tiles, level_in, cur
     after = launch_counts()
     for name in REPLACES:
         require(after[name] > before[name], f"{name} launch counter idle")
     torch.cuda.synchronize()
     return res
+
+
+def phase_onesweep(dev, rt, cr, note, res):
+    """The pass kernel in look-back mode against its plain version: a u32
+    KV pass at 2^27 (RandomDistributed and Zeros), a u64 KV pass, a ragged
+    n, 17 planes, and the partition's pass (digit plane not moved)."""
+    n = 1 << 27
+    tile = rt.DEFAULT_CONFIG.tile_elems  # the sort's tile
+    iota = torch.arange(n, dtype=torch.int32, device=dev)
+
+    def check(what, digit, planes, radix=256, shift=0):
+        counts = torch.bincount(cr._digits(digit, radix, shift).long(),
+                                minlength=radix).int()
+        outs, _ = cr.onesweep_pass(digit, planes, counts, radix, tile, shift)
+        want, _ = cr.onesweep_pass_plain(digit, planes, radix, tile, shift)
+        err = max(max_abs_err(a, b) for a, b in zip(outs, want))
+        require(err == 0, f"onesweep_pass {what} disagrees")
+        print(f"[kernels] onesweep_pass {what}: bit-exact", flush=True)
+        return counts
+
+    for ds in (rt.datasets.RandomDistributed(np.uint32, seed=0),
+               rt.datasets.Zeros(np.uint32)):
+        keys = rt.dtypes.tensor_from_numpy(ds.generate(n), dev).view(
+            torch.int32)
+        counts = check(f"u32 KV n=2^27 {ds.name} (pass 1, shift 8)", keys,
+                       (keys, iota), shift=8)
+        if ds.name == "RandomDistributed":
+            t = timings(
+                lambda: cr.onesweep_pass(keys, (keys, iota), counts, 256,
+                                         tile, 8),
+                lambda: cr.onesweep_pass_plain(keys, (keys, iota), 256,
+                                               tile, 8))
+            note("onesweep_pass", 0, t, nbytes=16 * n + 4 * 256)
+            b = res["onesweep_pass"]["bound_ms"]
+            print(f"[kernels] onesweep_pass u32 KV n=2^27: device "
+                  f"{t['ms']:.5f} ms, {16 * n / t['ms'] / 1e9:.3f} TB/s of "
+                  f"16 B an element; bound {b:.5f} ms, share "
+                  f"{b / t['ms']:.3f} (of the 0.651 ms that counts a base "
+                  f"table: {0.651 / t['ms']:.3f}); plain {t['plain_ms']:.3f} "
+                  f"ms", flush=True)
+        del keys
+    ds = rt.datasets.RandomDistributed(np.uint64, seed=0)
+    k64 = rt.dtypes.tensor_from_numpy(ds.generate(n), dev).view(torch.int32)
+    lo, hi = k64[0::2].contiguous(), k64[1::2].contiguous()
+    del k64
+    check("u64 KV n=2^27 (lo, hi, payload; hi plane, shift 16)", hi,
+          (lo, hi, iota), shift=16)
+    del lo, hi
+    m = n - 777
+    x = torch.from_numpy(np.random.default_rng(1).integers(
+        -2**31, 2**31, m).astype(np.int32)).to(dev)
+    check(f"ragged n={m} (KV)", x, (x, iota[:m]), shift=24)
+    check("17 planes n=2^22", x[:1 << 22],
+          tuple(x[:1 << 22] + i for i in range(17)), radix=16, shift=4)
+    ids = x & 255
+    check("partition pass n=2^27-777 (ids not moved, 2 planes)", ids,
+          (iota[:m], x))
+    del x, ids, iota
 
 
 def check_sorted_kv(rt, keys_in, keys_out, perm, host_keys, what):
@@ -374,34 +489,74 @@ def phase_sort(dev, rt):
     return results
 
 
-def phase_scan_share(dev, rt):
-    """torch.profiler over a u32 KV sort at 2^27: the exclusive_scan
-    kernel's (and its scratch memsets') share of the sort's device time."""
+def _profile(fn, iters: int) -> list:
+    """Device-side profiler events of ``iters`` calls of ``fn``."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    require(rows, "profiler recorded no device time")
+    return rows
+
+
+def _ms(rows, iters: int, pred=lambda e: True) -> float:
+    return sum(e.device_time_total for e in rows if pred(e)) / iters / 1e3
+
+
+def phase_profile(dev, rt):
+    """A u32 KV sort at 2^27: its launches and host reads (one
+    pass_histograms, four onesweep passes, one read), and torch.profiler's
+    device time a sort by kernel.  Then the card's idle share over
+    back-to-back u32 key-only sorts at 2^25: 1 - (profiled device time) /
+    (event time of the same loop without the profiler)."""
+    from radix_sort_tpu_torch.ops import stream
+
     n = 1 << 27
     keys = rt.dtypes.tensor_from_numpy(
         rt.datasets.RandomDistributed(np.uint32, seed=0).generate(n), dev)
     iota = torch.arange(n, dtype=torch.int32, device=dev)
     rt.sort_kv(keys, iota)
     torch.cuda.synchronize()
+    before, reads = launch_counts(), stream.host_reads
+    rt.sort_kv(keys, iota)
+    torch.cuda.synchronize()
+    delta = {k: v - before[k] for k, v in launch_counts().items()}
+    want = {"pass_histograms": 1, "onesweep_pass": 4, "digit_histogram": 0,
+            "exclusive_scan": 0, "rank_scatter": 0}
+    require(all(delta[k] == v for k, v in want.items()),
+            f"a u32 KV 2^27 sort launched {delta}, expected {want}")
+    require(stream.host_reads - reads == 1, "a sort read the host "
+            f"{stream.host_reads - reads} times")
     iters = 3
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            rt.sort_kv(keys, iota)
-        torch.cuda.synchronize()
-    rows = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    require(rows, "profiler recorded no device time")
-    total = sum(e.device_time_total for e in rows) / iters / 1e3
-    scan = [e for e in rows if "exclusive_scan_kernel" in e.name]
-    scan_ms = sum(e.device_time_total for e in scan) / iters / 1e3
-    memset_ms = sum(e.device_time_total for e in rows
-                    if e.name.startswith("Memset")) / iters / 1e3
-    require(scan, "no exclusive_scan kernel in the sort's profile")
+    rows = _profile(lambda: rt.sort_kv(keys, iota), iters)
+    total = _ms(rows, iters)
+    hist = _ms(rows, iters, lambda e: "pass_histograms_kernel" in e.name)
+    passes = _ms(rows, iters, lambda e: "rank_scatter_kernel" in e.name)
+    memset = _ms(rows, iters, lambda e: e.name.startswith("Memset"))
     print(f"[profile] sort_kv u32 RandomDistributed 2^27: device "
-          f"{total:.4f} ms a sort; exclusive_scan {len(scan) / iters:g} "
-          f"launches, {scan_ms:.4f} ms (+ memsets {memset_ms:.4f} ms), "
-          f"share {scan_ms / total:.4f}", flush=True)
+          f"{total:.4f} ms a sort: pass_histograms {hist:.4f}, 4 onesweep "
+          f"passes {passes:.4f} ({passes / 4:.4f} each), memsets "
+          f"{memset:.4f}, other {total - hist - passes - memset:.4f}; "
+          f"launches {delta}; host reads a sort 1", flush=True)
+    del keys, iota
+
+    n = 1 << 25
+    keys = rt.dtypes.tensor_from_numpy(
+        rt.datasets.RandomDistributed(np.uint32, seed=0).generate(n), dev)
+    sorts = 10
+
+    def loop():
+        for _ in range(sorts):
+            rt.sort(keys)
+
+    wall = time_ms(loop) / sorts
+    busy = _ms(_profile(loop, 1), sorts)
+    print(f"[profile] sort u32 key-only 2^25, {sorts} back to back: "
+          f"{wall:.4f} ms a sort (events), device busy {busy:.4f} ms, idle "
+          f"share {1 - busy / wall:.4f}", flush=True)
 
 
 def phase_config3(dev, rt):
@@ -583,15 +738,18 @@ def main() -> int:
     kernel_res = phase_kernels(dev, rt, cr, cm)
 
     torch.cuda.reset_peak_memory_stats()
-    radix_kernels = ("digit_histogram", "exclusive_scan", "rank_scatter")
+    radix_kernels = ("pass_histograms", "onesweep_pass")
     radix = run_path("radix", (lambda: phase_sort(dev, rt),
-                               lambda: phase_scan_share(dev, rt),
+                               lambda: phase_profile(dev, rt),
                                lambda: phase_config3(dev, rt),
                                lambda: phase_config4(dev, rt)), radix_kernels)
+    # the harness's per-phase timings run the three-launch pass
     merge = run_path("merge", (lambda: phase_merge(dev, rt),
                                lambda: phase_topk(dev, rt),
                                lambda: phase_harness(dev, rt)),
-                     radix_kernels + ("tile_sort", "merge_level"))
+                     radix_kernels + ("digit_histogram", "exclusive_scan",
+                                      "rank_scatter", "tile_sort",
+                                      "merge_level"))
     launches = {k: radix[k] + merge[k] for k in REPLACES}
     peak = torch.cuda.max_memory_allocated()
     print(f"[summary] launches on both paths {launches}; "
@@ -601,8 +759,9 @@ def main() -> int:
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                "plain_ms": r["plain_ms"], "call_ms": r["call_ms"],
-                "plain_call_ms": r["plain_call_ms"]}
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                "call_ms": r["call_ms"], "plain_call_ms": r["plain_call_ms"]}
                for name, r in kernel_res.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
 """Build and load the CUDA kernels in ``csrc/`` at first use.
 
-``nvcc`` compiles the sources of ``csrc/`` for ``sm_90a`` into one shared
-library with a plain C interface under ``build/kernels/`` at the root of
-the checkout (git-ignored), named by a hash of the sources and the flags, so
-an edited source builds anew and an unchanged one is reused.  The library
+``nvcc`` compiles each source of ``csrc/`` for ``sm_90a``, one process a
+source, all started together, and links the objects into one shared library
+with a plain C interface under ``build/kernels/`` at the root of the
+checkout (git-ignored), named by a hash of the sources and the flags, so an
+edited source builds anew and an unchanged one is reused.  The library
 is loaded with ctypes; every entry point takes device pointers and the CUDA
 stream as ``c_void_p`` and returns ``cudaGetLastError()``.
 
@@ -27,7 +28,7 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 SOURCES = ("radix.cu", "merge.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,6 +41,12 @@ _SIGNATURES = {
     "rst_rank_scatter": ([_P, _LL, _I, _I, _I, _I, _P,
                           ctypes.POINTER(_P), ctypes.POINTER(_P), _I, _P, _P],
                          _I),
+    "rst_pass_histograms": ([_P, _I, _P, _I, _LL, _I, _P, _P], _I),
+    "rst_onesweep_scratch_bytes": ([_LL, _I, _I], _LL),
+    "rst_zero": ([_P, _LL, _P], _I),
+    "rst_onesweep_pass": ([_P, _LL, _I, _I, _I, _I, _P, _P, _LL,
+                           ctypes.POINTER(_P), ctypes.POINTER(_P), _I, _P, _P,
+                           _P], _I),
     "rst_merge_tile": ([], _I),
     "rst_tile_sort": ([_P, _LL, _P, _P], _I),
     "rst_merge_level": ([_P, _LL, _I, _P, _P, _P, _P, _P], _I),
@@ -72,13 +79,29 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(_CSRC / s) for s in SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise EngineError(OperationStatus.COMPILATION_FAILED,
-                          f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+    objs = [out.with_suffix(f".{os.getpid()}.{name}.o") for name in SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", str(_CSRC / name), "-o", str(obj)]
+            for name, obj in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+    try:
+        for cmd, p, log in zip(cmds, procs, logs):
+            if p.returncode != 0:
+                raise EngineError(OperationStatus.COMPILATION_FAILED,
+                                  f"{' '.join(cmd)}\n{log}")
+        res = subprocess.run(link, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise EngineError(OperationStatus.COMPILATION_FAILED,
+                              f"{' '.join(link)}\n{res.stdout}\n"
+                              f"{res.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)  # atomic: a concurrent build never sees a partial file
     return out
 

@@ -13,8 +13,12 @@ import dataclasses
 
 from . import dtypes
 
-# (tile_elems, threads_per_cta) pairs that csrc/radix.cu instantiates.
-KERNEL_SHAPES = ((4096, 256), (2048, 256), (4096, 128), (2048, 128))
+# (tile_elems, threads_per_cta) pairs that csrc/radix.cu instantiates.  The
+# default, 8192 x 256, took 1.32 device-ms for a u32 KV pass at 2^27 where
+# 4096 x 256 took 1.48 (scripts/onesweep_probe.py on an H100 80GB HBM3 at
+# 700 W; PERF.md).
+KERNEL_SHAPES = ((4096, 256), (2048, 256), (4096, 128), (2048, 128),
+                 (8192, 256))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,7 +36,7 @@ class SortConfig:
     """
 
     bits_per_pass: int = 8
-    tile_elems: int = 4096
+    tile_elems: int = 8192
     threads_per_cta: int = 256
     max_input_elems: int = 1 << 27
     engine: str = "auto"

@@ -25,10 +25,11 @@ ENGINE_NAMES = {"pallas_merge": "merge"}
 
 
 def table_from_numpy(columns: Mapping[str, np.ndarray], num_rows=None,
-                     device="cpu") -> Table:
+                     device="cuda") -> Table:
     """numpy columns (+ the JAX table's ``num_rows``) → the port's Table on
-    ``device``.  uint32/uint64 columns cross as their signed containers and
-    keep their dtype; ``Table.to_numpy()`` gives them back unchanged."""
+    ``device``, the card unless the caller asks for the CPU.  uint32/uint64
+    columns cross as their signed containers and keep their dtype;
+    ``Table.to_numpy()`` gives them back unchanged."""
     if num_rows is not None:
         num_rows = int(np.asarray(num_rows))
     return Table.from_numpy(columns, num_rows=num_rows, device=device)

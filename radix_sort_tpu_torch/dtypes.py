@@ -194,9 +194,10 @@ def np_from_sortable_unsigned(ukeys: np.ndarray, dtype) -> np.ndarray:
     raise TypeError(f"unsupported key dtype {d}")
 
 
-def tensor_from_numpy(a: np.ndarray, device="cpu") -> torch.Tensor:
-    """numpy array → tensor on ``device``; uint32/uint64 cross as their
-    signed containers and are viewed back on the device."""
+def tensor_from_numpy(a: np.ndarray, device="cuda") -> torch.Tensor:
+    """numpy array → tensor on ``device`` (the card unless the caller asks
+    for the CPU); uint32/uint64 cross as their signed containers and are
+    viewed back on the device."""
     a = np.ascontiguousarray(a)
     if not a.flags.writeable:  # torch.from_numpy wants a writable buffer
         a = a.copy()

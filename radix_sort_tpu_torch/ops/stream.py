@@ -3,9 +3,10 @@
 Port of ``radix_sort_tpu/ops/pallas_stream.py``.  Keys and payloads travel
 as int32 word planes: a 4-byte column is one plane, an 8-byte column a
 (lo, hi) pair (``x.view(torch.int32).reshape(n, 2)``), a narrower column is
-widened to one plane.  So every kernel sees only int32 planes, and one
-pass of ``digit_histogram`` → ``_stitch_block_base`` → ``rank_scatter``
-moves every plane by the digit of one of them.
+widened to one plane.  So every kernel sees only int32 planes.  A sort is
+one ``pass_histograms`` launch over the key word planes, one host read of
+its (P, R) table, and one ``onesweep_pass`` launch for each pass that one
+digit does not fill, moving every plane by the digit of one of them.
 
 What the TPU engine needed and the port does not: the 128-lane row layout,
 padding to whole tiles (the kernels mask the ragged tile), the
@@ -32,34 +33,47 @@ def _next_pow2(v: int) -> int:
     return p
 
 
-def _one_pass(digit_src, planes, radix: int, tile: int, shift: int,
-              threads: int = _THREADS):
-    """One stable pass: every plane moves by the digit
-    ``(digit_src >> shift) & (R-1)``.  Returns (planes_out, totals) with
-    totals the (R,) int32 digit histogram.  A degenerate pass (one digit
-    holds every element) is the identity and is skipped — the reference's
-    CPU early-exit (CRadixSortCPU.h).  Deciding that reads the (R,) totals
-    on the host once a pass, a synchronisation a later PR can remove."""
-    n = digit_src.numel()
-    hist = cr.digit_histogram(digit_src, radix, tile, shift, threads)
-    base = cr._stitch_block_base(hist)
-    starts = base[0]
-    totals = torch.diff(starts, append=starts.new_full((1,), n))
-    if bool((totals == n).any()):
-        return tuple(planes), totals
-    outs, _ = cr.rank_scatter(digit_src, planes, base, radix, tile, shift,
-                              threads=threads)
-    return outs, totals
+# Host reads of pass histograms; a sort or a partition makes one.
+host_reads = 0
 
 
-def _sort_planes(planes, digit_sel, radix: int, tile: int,
+def _read_full_passes(hist: torch.Tensor, n: int) -> list:
+    """Which rows of a (P, R) pass histogram one digit fills: the one read
+    of the card a sort makes."""
+    global host_reads
+    host_reads += 1
+    return (hist == n).any(dim=1).tolist()
+
+
+def _sort_planes(planes, passes, radix: int, tile: int,
                  threads: int = _THREADS):
-    """Generic LSD loop: ``digit_sel`` gives, per pass, (index of the
-    plane that holds the digit, shift).  Every plane moves every pass."""
+    """Onesweep LSD loop: plane w (w < len(passes)) carries passes[w]
+    digits, pass j's at shift j * log2(radix); every plane moves every
+    pass.  One pass_histograms launch gives every pass's digit totals, the
+    host reads them once, and each pass that no single digit fills is one
+    onesweep_pass launch — a filled pass is the identity, the reference's
+    CPU early-exit (CRadixSortCPU.h).  The passes ping-pong between two
+    buffer sets allocated here, and their look-back scratch is zeroed by
+    one memset.  Returns the planes after the last pass."""
     planes = tuple(planes)
-    for p_idx, shift in digit_sel:
-        planes, _ = _one_pass(planes[p_idx], planes, radix, tile, shift,
-                              threads)
+    n = planes[0].numel()
+    bits = radix.bit_length() - 1
+    hist = cr.pass_histograms(planes[:len(passes)], passes, radix)
+    full = _read_full_passes(hist, n)
+    rows = [(w, j * bits) for w, np_ in enumerate(passes) for j in range(np_)]
+    run = [(row, w, shift) for row, (w, shift) in enumerate(rows)
+           if not full[row]]
+    if not run:
+        return planes
+    on_card = planes[0].device.type == "cuda"
+    scratch = (cr.onesweep_scratch(n, radix, tile, len(run), planes[0].device)
+               if on_card else [None] * len(run))
+    bufs = [tuple(torch.empty_like(p) for p in planes)
+            for _ in range(min(2, len(run)))]
+    for i, (row, w, shift) in enumerate(run):
+        planes, _ = cr.onesweep_pass(planes[w], planes, hist[row], radix,
+                                     tile, shift, scratch=scratch[i],
+                                     outs=bufs[i % 2], threads=threads)
     return planes
 
 
@@ -97,11 +111,10 @@ def sort_planes(keys_bits: torch.Tensor, payload_planes=(), radix: int = 256,
     nk = len(kplanes)
     bits_per = radix.bit_length() - 1
     kbits = 8 * keys_bits.element_size() if total_bits is None else total_bits
-    sel = []
-    for w in range(nk):
-        wbits = min(32, kbits - 32 * w)
-        sel += [(w, p * bits_per) for p in range(-(-wbits // bits_per))]
-    out = _sort_planes(kplanes + payload_planes, sel, radix, tile, threads)
+    passes = tuple(-(-min(32, kbits - 32 * w) // bits_per) for w in range(nk)
+                   if kbits > 32 * w)
+    out = _sort_planes(kplanes + payload_planes, passes, radix, tile,
+                       threads)
     return _join_key_word_planes(out[:nk], keys_bits.dtype), out[nk:]
 
 
@@ -124,11 +137,15 @@ def partition_planes(bucket_ids: torch.Tensor, planes_i32, num_buckets: int,
                                    device=ids.device)
     radix = max(2, _next_pow2(num_buckets))
     if radix <= 256:
-        outs, totals = _one_pass(ids, planes, radix, tile, 0, threads)
-        return outs, totals[:num_buckets]
+        hist = cr.pass_histograms((ids,), (1,), radix)
+        totals = hist[0, :num_buckets]
+        if _read_full_passes(hist, n)[0]:
+            return planes, totals
+        outs, _ = cr.onesweep_pass(ids, planes, hist[0], radix, tile, 0,
+                                   threads=threads)
+        return outs, totals
     bits = radix.bit_length() - 1
-    sel = [(0, s) for s in range(0, bits, 8)]
-    out = _sort_planes((ids,) + planes, sel, 256, tile, threads)
+    out = _sort_planes((ids,) + planes, (-(-bits // 8),), 256, tile, threads)
     counts = torch.bincount(ids.to(torch.int64), minlength=num_buckets)
     return out[1:], counts[:num_buckets].to(torch.int32)
 

@@ -76,9 +76,9 @@ class Table:
 
     @classmethod
     def from_numpy(cls, columns: Mapping[str, np.ndarray],
-                   num_rows: int | None = None, device="cpu") -> "Table":
+                   num_rows: int | None = None, device="cuda") -> "Table":
         """Columns from numpy arrays (uint32/uint64 included), on
-        ``device``."""
+        ``device``: the card unless the caller asks for the CPU."""
         return cls({k: dtypes.tensor_from_numpy(v, device)
                     for k, v in columns.items()}, num_rows)
 

@@ -48,7 +48,7 @@ def test_package_imports_no_jax():
 def test_to_sortable_matches_jax(dtype):
     data = jds.RandomDistributed(dtype, seed=7).generate(2000)
     want = np.asarray(jdt.to_sortable_unsigned(jnp.asarray(data)))
-    bits = tdt.to_sortable(tdt.tensor_from_numpy(data))
+    bits = tdt.to_sortable(tdt.tensor_from_numpy(data, "cpu"))
     assert bits.dtype == tdt.signed_container(dtype)
     got = bits.numpy().view(want.dtype)
     np.testing.assert_array_equal(got, want)
@@ -73,7 +73,7 @@ def test_16bit_to_sortable_matches_jax(dtype):
     data = data.astype(dtype)
     data[:2] = (info.min, info.max)
     want = np.asarray(jdt.to_sortable_unsigned(jnp.asarray(data)))
-    bits = tdt.to_sortable(tdt.tensor_from_numpy(data))
+    bits = tdt.to_sortable(tdt.tensor_from_numpy(data, "cpu"))
     assert bits.dtype == tdt.signed_container(dtype) == torch.int32
     np.testing.assert_array_equal(bits.numpy(), want.astype(np.int32))
     back = tdt.tensor_to_numpy(tdt.from_sortable(bits, dtype))
@@ -166,7 +166,7 @@ def test_table_from_jax_table_roundtrip():
     jt = JTable(jt.columns, num_rows=40)
     t = convert.table_from_numpy(
         {k: np.asarray(v) for k, v in jt.columns.items()},
-        num_rows=np.asarray(jt.num_rows))
+        num_rows=np.asarray(jt.num_rows), device="cpu")
     assert t.capacity == 64 and int(t.num_rows) == 40
     assert t.num_rows.dtype == torch.int32 and t.num_rows.ndim == 0
     assert t["u"].dtype == torch.uint32 and t["w"].dtype == torch.uint64

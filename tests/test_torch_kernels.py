@@ -137,8 +137,11 @@ def test_cpu_tensors_take_the_plain_path_without_launching():
     x = torch.arange(5000, dtype=torch.int32)
     base = cr._stitch_block_base(cr.digit_histogram(x, 16, TILE))
     cr.rank_scatter(x, (x,), base, 16, TILE)
+    hist = cr.pass_histograms((x,), (2,), 16)
+    cr.onesweep_pass(x, (x,), hist[0], 16, TILE)
     assert cr.launch_counts() == {"digit_histogram": 0, "exclusive_scan": 0,
-                                  "rank_scatter": 0}
+                                  "rank_scatter": 0, "pass_histograms": 0,
+                                  "onesweep_pass": 0}
 
 
 def test_wrappers_reject_bad_input():

@@ -100,7 +100,7 @@ def test_merge_engine_matches_jax(n):
             np.asarray(pm.merge_sort_u32(jnp.asarray(u), n)), np.sort(u))
     for keys in (u, u.view(np.int32), f):
         want = np.asarray(rst.sort(jnp.asarray(keys), engine="pallas_merge"))
-        got = tdt.tensor_to_numpy(rtt.sort(tdt.tensor_from_numpy(keys),
+        got = tdt.tensor_to_numpy(rtt.sort(tdt.tensor_from_numpy(keys, "cpu"),
                                            engine="merge"))
         assert got.dtype == keys.dtype
         np.testing.assert_array_equal(got.view(np.uint8), want.view(np.uint8))
@@ -117,7 +117,7 @@ def test_merge_engine_extreme_keys(n):
     for keys in (np.full(n, 0xFFFFFFFF, np.uint32), np.zeros(n, np.uint32),
                  mixed):
         want = np.asarray(rst.sort(jnp.asarray(keys), engine="pallas_merge"))
-        got = tdt.tensor_to_numpy(rtt.sort(tdt.tensor_from_numpy(keys),
+        got = tdt.tensor_to_numpy(rtt.sort(tdt.tensor_from_numpy(keys, "cpu"),
                                            engine="merge"))
         np.testing.assert_array_equal(got, want)
 
@@ -134,21 +134,21 @@ def test_merge_engine_dispatch(monkeypatch):
     n = 3001
     k32 = rng.integers(0, 8, n).astype(np.uint32)
     vals = np.arange(n, dtype=np.int32)
-    rtt.sort(tdt.tensor_from_numpy(k32), engine="merge")
+    rtt.sort(tdt.tensor_from_numpy(k32, "cpu"), engine="merge")
     assert calls == [n]
     jk, jv = rst.sort_kv(jnp.asarray(k32), jnp.asarray(vals),
                          engine="pallas_merge")
-    tk, tv = rtt.sort_kv(tdt.tensor_from_numpy(k32), torch.from_numpy(vals),
-                         engine="merge")
+    tk, tv = rtt.sort_kv(tdt.tensor_from_numpy(k32, "cpu"),
+                         torch.from_numpy(vals), engine="merge")
     np.testing.assert_array_equal(tdt.tensor_to_numpy(tk), np.asarray(jk))
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
     np.testing.assert_array_equal(
-        rtt.argsort(tdt.tensor_from_numpy(k32), engine="merge").numpy(),
+        rtt.argsort(tdt.tensor_from_numpy(k32, "cpu"), engine="merge").numpy(),
         golden.oracle_argsort(k32))
     for keys in (rng.integers(0, 2**64, n, dtype=np.uint64),
                  rng.integers(-2**15, 2**15, n).astype(np.int16)):
         want = np.asarray(rst.sort(jnp.asarray(keys), engine="pallas_merge"))
-        got = tdt.tensor_to_numpy(rtt.sort(tdt.tensor_from_numpy(keys),
+        got = tdt.tensor_to_numpy(rtt.sort(tdt.tensor_from_numpy(keys, "cpu"),
                                            engine="merge"))
         np.testing.assert_array_equal(got, want)
     assert calls == [n]

@@ -32,7 +32,7 @@ def both(cols, num_rows=None):
                 num_rows=num_rows)
     tt = convert.table_from_numpy(
         {k: np.asarray(v) for k, v in jt.columns.items()},
-        num_rows=np.asarray(jt.num_rows))
+        num_rows=np.asarray(jt.num_rows), device="cpu")
     return jt, tt
 
 

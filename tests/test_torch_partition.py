@@ -53,7 +53,7 @@ def test_stable_partition_matches_jax_sort(method, nb):
         method="sort")
     tout, tcnt, tst = partition.stable_partition(
         torch.from_numpy(ids),
-        tuple(tdt.tensor_from_numpy(arrs[k]) for k in names), nb,
+        tuple(tdt.tensor_from_numpy(arrs[k], "cpu") for k in names), nb,
         method=method)
     assert tcnt.dtype == torch.int32 and tst.dtype == torch.int32
     np.testing.assert_array_equal(tcnt.numpy(), np.asarray(jcnt))
@@ -86,7 +86,8 @@ def test_compact_mask_matches_jax(method):
                                   tuple(jnp.asarray(arrs[k]) for k in names))
     tout, tk = partition.compact_mask(
         torch.from_numpy(mask),
-        tuple(tdt.tensor_from_numpy(arrs[k]) for k in names), method=method)
+        tuple(tdt.tensor_from_numpy(arrs[k], "cpu") for k in names),
+        method=method)
     assert tk.dtype == torch.int32 and tk.ndim == 0
     assert int(tk) == int(jk)
     for x, y in zip(tout, jout):
@@ -102,7 +103,7 @@ def test_compact_prefix_slots_matches_jax():
     (ja, ju), jt = jpart.compact_prefix_slots(
         (jnp.asarray(a), jnp.asarray(u)), jnp.asarray(counts), L)
     (ta, tu), tt = partition.compact_prefix_slots(
-        (torch.from_numpy(a), tdt.tensor_from_numpy(u)),
+        (torch.from_numpy(a), tdt.tensor_from_numpy(u, "cpu")),
         torch.from_numpy(counts), L)
     total = int(jt)
     assert int(tt) == total
@@ -117,7 +118,7 @@ def test_radix_partition_matches_jax():
     vals = np.arange(2000, dtype=np.int32)
     jo, jc, _ = jpart.radix_partition(jnp.asarray(keys),
                                       (jnp.asarray(vals),), 4, shift=12)
-    bits = tdt.to_sortable(tdt.tensor_from_numpy(keys))
+    bits = tdt.to_sortable(tdt.tensor_from_numpy(keys, "cpu"))
     for method in ("sort", "stream"):
         to, tc, _ = partition.radix_partition(bits, (torch.from_numpy(vals),),
                                               4, shift=12, method=method)

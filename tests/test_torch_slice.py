@@ -37,7 +37,7 @@ def _cases():
 def test_sort_phase_matches_jax(case):
     ds, kv = _cases()[case]
     host = ds.generate(N)
-    keys = tdt.tensor_from_numpy(host)
+    keys = tdt.tensor_from_numpy(host, "cpu")
     if kv:
         iota = np.arange(N, dtype=np.int32)
         ko, perm = rtt.sort_kv(keys, torch.from_numpy(iota))
@@ -69,7 +69,7 @@ def test_config3_filter_aggregate_matches_jax():
                                    aggs)
 
     want = jax.jit(jquery)(JTable.from_numpy(cols)).to_numpy()
-    t = convert.table_from_numpy(cols)
+    t = convert.table_from_numpy(cols, device="cpu")
     got = aggregate.hash_aggregate(filt.filter_expr(t, "k", "lt", 500), "k",
                                    aggs).to_numpy()
     for k in want:
@@ -90,8 +90,9 @@ def test_config4_join_matches_jax():
     build = {"k": bk, "bv": (bk * 3).astype(np.int32)}
     jres, jstats = jax.jit(lambda p, b: jjoin.hash_join(p, b, "k"))(
         JTable.from_numpy(probe), JTable.from_numpy(build))
-    res, stats = join.hash_join(convert.table_from_numpy(probe),
-                                convert.table_from_numpy(build), "k")
+    res, stats = join.hash_join(
+        convert.table_from_numpy(probe, device="cpu"),
+        convert.table_from_numpy(build, device="cpu"), "k")
     cnt = int(stats["match_count"])
     assert cnt == int(jstats["match_count"]) == int(np.isin(pk, bk).sum())
     assert not bool(stats["overflow"])

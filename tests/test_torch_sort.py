@@ -36,7 +36,8 @@ def test_sort_kv_matches_jax(dtype, dist):
     keys = _make(dtype, dist)
     vals = np.arange(keys.size, dtype=np.int32)
     jk, jv = rst.sort_kv(jnp.asarray(keys), jnp.asarray(vals))
-    tk, tv = rtt.sort_kv(tdt.tensor_from_numpy(keys), torch.from_numpy(vals))
+    tk, tv = rtt.sort_kv(tdt.tensor_from_numpy(keys, "cpu"),
+                         torch.from_numpy(vals))
     got_k = tdt.tensor_to_numpy(tk)
     assert got_k.dtype == keys.dtype
     np.testing.assert_array_equal(got_k.view(np.uint8),
@@ -48,7 +49,7 @@ def test_sort_kv_matches_jax(dtype, dist):
 @pytest.mark.parametrize("dtype", ALL_DTYPES, ids=IDS)
 def test_sort_and_argsort_match_jax(dtype):
     keys = _make(dtype, "RandomDistributed")
-    tk = tdt.tensor_from_numpy(keys)
+    tk = tdt.tensor_from_numpy(keys, "cpu")
     got = tdt.tensor_to_numpy(rtt.sort(tk))
     want = np.asarray(rst.sort(jnp.asarray(keys)))
     np.testing.assert_array_equal(got.view(np.uint8), want.view(np.uint8))
@@ -69,7 +70,7 @@ def test_16bit_keys_match_jax(dtype):
                                 info.max], dtype), N)
     keys[::7] = rng.integers(info.min, info.max + 1, keys[::7].size)
     vals = np.arange(N, dtype=np.int32)
-    tk = tdt.tensor_from_numpy(keys)
+    tk = tdt.tensor_from_numpy(keys, "cpu")
     got = tdt.tensor_to_numpy(rtt.sort(tk))
     assert got.dtype == keys.dtype
     np.testing.assert_array_equal(got, np.asarray(rst.sort(jnp.asarray(keys))))
@@ -92,7 +93,8 @@ def test_heavy_ties_are_stable_across_payload_widths():
     jk, jp = rst.sort_kv(jnp.asarray(keys),
                          {k: jnp.asarray(v) for k, v in pay.items()})
     tk, tp = rtt.sort_kv(torch.from_numpy(keys),
-                         {k: tdt.tensor_from_numpy(v) for k, v in pay.items()})
+                         {k: tdt.tensor_from_numpy(v, "cpu")
+                          for k, v in pay.items()})
     np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
     for k in pay:
         got = tdt.tensor_to_numpy(tp[k])
@@ -102,7 +104,7 @@ def test_heavy_ties_are_stable_across_payload_widths():
 
 def test_tuple_payload_and_engines_agree():
     keys = _make(np.uint32, "Random")
-    k = tdt.tensor_from_numpy(keys)
+    k = tdt.tensor_from_numpy(keys, "cpu")
     a = torch.arange(N, dtype=torch.int32)
     r_k, (r_a, r_b) = rtt.sort_kv(k, (a, a * 2), engine="radix")
     t_k, (t_a, t_b) = rtt.sort_kv(k, (a, a * 2), engine="torch_sort")
@@ -158,7 +160,7 @@ def test_sort_planes_matches_pallas_stream():
 def test_u64_word_planes_roundtrip():
     rng = np.random.default_rng(4)
     keys = rng.integers(0, 2**64, 777, dtype=np.uint64)
-    bits = tdt.to_sortable(tdt.tensor_from_numpy(keys))
+    bits = tdt.to_sortable(tdt.tensor_from_numpy(keys, "cpu"))
     words = stream._key_word_planes(bits)
     assert len(words) == 2 and all(w.dtype == torch.int32 for w in words)
     np.testing.assert_array_equal(words[0].numpy().view(np.uint32),

@@ -34,7 +34,7 @@ def _tied_keys(dtype, n, seed):
 def test_top_k_matches_jax(dtype, k, largest):
     keys = _tied_keys(dtype, 1000, 3)
     want = np.asarray(rst.top_k(jnp.asarray(keys), k, largest=largest))
-    got = tdt.tensor_to_numpy(rtt.top_k(tdt.tensor_from_numpy(keys), k,
+    got = tdt.tensor_to_numpy(rtt.top_k(tdt.tensor_from_numpy(keys, "cpu"), k,
                                         largest=largest))
     assert got.dtype == keys.dtype
     np.testing.assert_array_equal(got, want)
@@ -53,8 +53,9 @@ def test_top_k_kv_stable_ties_match_jax(dtype, k, largest):
     jk, jp = rst.top_k_kv(jnp.asarray(keys),
                           {a: jnp.asarray(v) for a, v in pay.items()}, k,
                           largest=largest)
-    tk, tp = rtt.top_k_kv(tdt.tensor_from_numpy(keys),
-                          {a: tdt.tensor_from_numpy(v) for a, v in pay.items()},
+    tk, tp = rtt.top_k_kv(tdt.tensor_from_numpy(keys, "cpu"),
+                          {a: tdt.tensor_from_numpy(v, "cpu")
+                           for a, v in pay.items()},
                           k, largest=largest)
     np.testing.assert_array_equal(tdt.tensor_to_numpy(tk), np.asarray(jk))
     for a in pay:
@@ -77,7 +78,7 @@ def test_top_k_under_merge_runs_the_merge_sort(monkeypatch):
     cfg = rtt.SortConfig(engine="merge")
     for k, largest in ((2000, True), (1500, False), (10, True)):
         want = np.asarray(rst.top_k(jnp.asarray(keys), k, largest=largest))
-        got = rtt.top_k(tdt.tensor_from_numpy(keys), k, largest=largest,
+        got = rtt.top_k(tdt.tensor_from_numpy(keys, "cpu"), k, largest=largest,
                         config=cfg)
         np.testing.assert_array_equal(tdt.tensor_to_numpy(got), want)
     assert calls == [3000, 3000]
@@ -100,17 +101,18 @@ def test_top_k_16bit_under_merge_sorts_16_bits(monkeypatch, dtype):
     cfg = rtt.SortConfig(engine="merge")
     for largest in (True, False):
         want = np.asarray(rst.top_k(jnp.asarray(keys), 2000, largest=largest))
-        got = rtt.top_k(tdt.tensor_from_numpy(keys), 2000, largest=largest,
-                        config=cfg)
+        got = rtt.top_k(tdt.tensor_from_numpy(keys, "cpu"), 2000,
+                        largest=largest, config=cfg)
         np.testing.assert_array_equal(tdt.tensor_to_numpy(got), want)
         jk, jr = rst.top_k_kv(jnp.asarray(keys), jnp.asarray(rows), 1500,
                               largest=largest)
-        tk, tr = rtt.top_k_kv(tdt.tensor_from_numpy(keys),
+        tk, tr = rtt.top_k_kv(tdt.tensor_from_numpy(keys, "cpu"),
                               torch.from_numpy(rows), 1500, largest=largest,
                               config=cfg)
         np.testing.assert_array_equal(tdt.tensor_to_numpy(tk), np.asarray(jk))
         np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
-        t = convert.table_from_numpy({"k": keys, "r": rows}, num_rows=2500)
+        t = convert.table_from_numpy({"k": keys, "r": rows}, num_rows=2500,
+                                     device="cpu")
         jt = JTable({"k": jnp.asarray(keys), "r": jnp.asarray(rows)},
                     num_rows=2500)
         g = topk.topk_table(t, "k", 2000, largest=largest,
@@ -133,7 +135,7 @@ def test_top_k_float_total_order():
 
 
 def test_top_k_pytree_payload_and_errors():
-    keys = tdt.tensor_from_numpy(np.array([3, 1, 2], np.uint32))
+    keys = tdt.tensor_from_numpy(np.array([3, 1, 2], np.uint32), "cpu")
     vals = {"a": torch.arange(3, dtype=torch.int32),
             "b": torch.tensor([0.5, 1.5, 2.5])}
     ko, vo = rtt.top_k_kv(keys, vals, 2)
@@ -159,8 +161,9 @@ def test_topk_table_padding_loses_matches_jax(k, largest):
             "w": rng.integers(0, 2**64, cap, dtype=np.uint64)}
     jt = JTable({a: jnp.asarray(v) for a, v in cols.items()}, num_rows=nrows)
     want = jtopk.topk_table(jt, "k", k, largest=largest)
-    got = topk.topk_table(convert.table_from_numpy(cols, num_rows=nrows), "k",
-                          k, largest=largest)
+    got = topk.topk_table(
+        convert.table_from_numpy(cols, num_rows=nrows, device="cpu"), "k", k,
+        largest=largest)
     assert got.capacity == want.capacity == k
     assert int(got.num_rows) == int(want.num_rows) == min(k, nrows)
     g, w = got.to_numpy(), want.to_numpy()
@@ -173,7 +176,8 @@ def test_topk_table_smallest_with_real_extreme_keys():
     cap, nrows = 8, 5
     key = np.array([7, 0, 3, 0, 5, 1, 1, 1], np.uint32)
     t = convert.table_from_numpy(
-        {"k": key, "r": np.arange(cap, dtype=np.int32)}, num_rows=nrows)
+        {"k": key, "r": np.arange(cap, dtype=np.int32)}, num_rows=nrows,
+        device="cpu")
     out = topk.topk_table(t, "k", 4, largest=False).to_numpy()
     np.testing.assert_array_equal(out["k"], [0, 0, 3, 5])
     np.testing.assert_array_equal(out["r"], [1, 3, 2, 4])
