@@ -9,7 +9,12 @@ kernel bit-exact against its plain torch version at the shapes the main
 path gives it (the onesweep pass in look-back mode at u32 KV 2^27 on
 RandomDistributed and Zeros, u64 KV 2^27, a ragged n, 17 planes and the
 partition's pass; ``pass_histograms`` at 2^27 for 32- and 64-bit keys;
-``rank_scatter`` in base-table mode at 2^22), then runs two paths at
+``rank_scatter`` in base-table mode at 2^22; ``tile_sort`` and every
+``merge_level`` of a 2^25 merge sort on RandomDistributed, Zeros, Range and
+disjoint runs, levels 0 and 10 against the plain versions with their
+splits and against ``torch.sort`` of each pair of runs, and
+``merge_level``'s device time and bound share at level 0 and
+the last level of 2^25 and 2^27), then runs two paths at
 BASELINE sizes through the public entry points, each with the kernels'
 launch counters set to 0 just before it and read just after:
 
@@ -29,6 +34,11 @@ launch counters set to 0 just before it and read just after:
   - ``sort(engine="merge")``: u32 key-only at 2^25 over the five
     distributions, i32 and f32 at 2^25, u32 at 2^25 - 777 and at 2^27, each
     timed beside ``radix`` and ``torch_sort``;
+  - ``[profile]``: a merge sort at 2^25 and at 2^27 launches one
+    ``tile_sort`` and one ``merge_level`` a level and nothing else (the
+    counters and the profiler's rows: no split kernel), its device time by
+    kernel (``tile_sort``, ``merge_level``, the torch glue of
+    ``merge_sort_bits``) and the idle share over back-to-back sorts;
   - ``top_k`` at 2^25 with k = 2^24 under ``engine="merge"`` and k = 1024,
     and ``top_k_kv`` with heavy ties, against numpy;
   - the harness: ``run_all`` over u32/i32/u64/i64 x five distributions at
@@ -318,62 +328,129 @@ def phase_kernels(dev, rt, cr, cm):
 
     phase_onesweep(dev, rt, cr, note, res)
 
-    # K5 and K6 at the shapes of a 2^25 key-only sort: 2048 tiles, levels
-    # 0 and 10 (the last), on keys in the kernels' sign-flipped domain.
-    n = 1 << 25
-    last = (n // cm.TILE).bit_length() - 2
-    for ds in (rt.datasets.RandomDistributed(np.uint32, seed=0),
-               rt.datasets.Zeros(np.uint32)):
-        keys = rt.dtypes.tensor_from_numpy(ds.generate(n), dev)
-        x = rt.dtypes.signed_order(rt.dtypes.to_sortable(keys))
-        tiles = cm.tile_sort(x)
-        err = max_abs_err(tiles, cm.tile_sort_plain(x))
-        require(err == 0, f"tile_sort on {ds.name} disagrees")
-        print(f"[kernels] tile_sort n={n} {ds.name}: bit-exact", flush=True)
-        level_in, cur = {}, tiles
-        for level in range(last + 1):
-            level_in[level] = cur
-            cur, _ = cm.merge_level(cur, level)
-        require(bool((cur[1:] >= cur[:-1]).all()),
-                f"merge levels on {ds.name}: not sorted")
-        for level in (0, last):
-            xin = level_in[level]
-            got, splits = cm.merge_level(xin, level, with_splits=True)
-            want_splits = cm.level_splits_plain(xin, level)
-            err = max(max_abs_err(a, b) for a, b in zip(splits, want_splits))
-            require(err == 0, f"merge_level {level} splits on {ds.name} "
-                              f"disagree")
-            err = max_abs_err(got, cm.merge_level_plain(xin, *want_splits))
-            require(err == 0, f"merge_level {level} on {ds.name} disagrees")
-            print(f"[kernels] merge_level n={n} level {level} {ds.name} "
-                  f"(splits + output): bit-exact", flush=True)
-        if ds.name == "RandomDistributed":
-            note("tile_sort", 0, timings(lambda: cm.tile_sort(x),
-                                         lambda: cm.tile_sort_plain(x)),
-                 nbytes=8 * n,
-                 library=lambda: torch.sort(x.view(-1, cm.TILE), dim=-1,
-                                            stable=True))
-            xin = level_in[0]
-            ms0 = device_ms(lambda: cm.merge_level(xin, 0))
-            xin = level_in[last]
-            note("merge_level", 0,
-                 timings(lambda: cm.merge_level(xin, last),
-                         lambda: cm.merge_level_plain(
-                             xin, *cm.level_splits_plain(xin, last))),
-                 nbytes=8 * n + 12 * (n // cm.TILE))
-            print(f"[kernels] merge_level n={n}: level 0 {ms0:.3f} ms, level "
-                  f"{last} {res['merge_level']['ms']:.3f} ms (plain "
-                  f"{res['merge_level']['plain_ms']:.3f} ms); tile_sort "
-                  f"{res['tile_sort']['ms']:.3f} ms (plain "
-                  f"{res['tile_sort']['plain_ms']:.3f} ms, torch.sort of "
-                  f"the tiles {res['tile_sort']['library_ms']:.3f} ms)",
-                  flush=True)
-        del keys, x, tiles, level_in, cur
+    phase_merge_kernels(dev, rt, cm, note, res)
     after = launch_counts()
     for name in REPLACES:
         require(after[name] > before[name], f"{name} launch counter idle")
     torch.cuda.synchronize()
     return res
+
+
+def disjoint_runs(n: int, tile: int, dev) -> torch.Tensor:
+    """Keys in the merge kernels' domain whose tile i holds values of
+    [i, i + 1) * 2^32 / tiles - 2^31, shuffled: tile_sort has real work, and
+    at every merge level all of run A lies below run B, so each output tile
+    takes one whole window (la is 0 or TILE)."""
+    tiles = n // tile
+    width = (1 << 32) // tiles
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    low = torch.randint(0, width, (n,), dtype=torch.int64, device=dev,
+                        generator=gen)
+    tile_id = torch.arange(n, dtype=torch.int64, device=dev) // tile
+    return (tile_id * width + low - 2**31).to(torch.int32)
+
+
+def phase_merge_kernels(dev, rt, cm, note, res):
+    """K5 and K6 at the shapes of a key-only merge sort, on keys in the
+    kernels' sign-flipped domain: every level of 2^25 (2048 tiles) on
+    RandomDistributed, Zeros, Range and disjoint runs, levels 0 and the last
+    checked against the plain versions (splits too); then K6's device time
+    and bound share at level 0 and the last level of 2^25 and 2^27."""
+    D = rt.datasets
+    n = 1 << 25
+    cases = [(ds.name, lambda ds=ds: rt.dtypes.signed_order(
+                  rt.dtypes.to_sortable(rt.dtypes.tensor_from_numpy(
+                      ds.generate(n), dev))))
+             for ds in (D.RandomDistributed(np.uint32, seed=0),
+                        D.Zeros(np.uint32), D.Range(np.uint32))]
+    cases.append(("disjoint runs", lambda: disjoint_runs(n, cm.TILE, dev)))
+    level_ms = {}
+    for name, make in cases:
+        x = make()
+        tiles = cm.tile_sort(x)
+        err = max_abs_err(tiles, cm.tile_sort_plain(x))
+        require(err == 0, f"tile_sort on {name} disagrees")
+        print(f"[kernels] tile_sort n={n} {name}: bit-exact", flush=True)
+        level_in, cur = merge_levels(cm, tiles)
+        require(bool((cur[1:] >= cur[:-1]).all()),
+                f"merge levels on {name}: not sorted")
+        last = len(level_in) - 1
+        for level in (0, last):
+            xin = level_in[level]
+            got, splits = cm.merge_level(xin, level, with_splits=True)
+            want_splits = cm.level_splits_plain(xin, level)
+            err = max(max_abs_err(a, b) for a, b in zip(splits, want_splits))
+            require(err == 0, f"merge_level {level} splits on {name} "
+                              f"disagree")
+            err = max_abs_err(got, cm.merge_level_plain(xin, *want_splits))
+            require(err == 0, f"merge_level {level} on {name} disagrees")
+            # the library call of the JSON line computes the same output
+            err = max_abs_err(got, merge_level_library(cm, xin, level)
+                              .values.reshape(-1))
+            require(err == 0, f"torch.sort of level {level}'s pairs on "
+                              f"{name} disagrees with merge_level")
+            print(f"[kernels] merge_level n={n} level {level} {name} "
+                  f"(splits + output, and torch.sort of the pairs): "
+                  f"bit-exact", flush=True)
+        if name == "RandomDistributed":
+            note("tile_sort", 0, timings(lambda: cm.tile_sort(x),
+                                         lambda: cm.tile_sort_plain(x)),
+                 nbytes=8 * n,
+                 library=lambda: torch.sort(x.view(-1, cm.TILE), dim=-1,
+                                            stable=True))
+            xin = level_in[last]
+            note("merge_level", 0,
+                 timings(lambda: cm.merge_level(xin, last),
+                         lambda: cm.merge_level_plain(
+                             xin, *cm.level_splits_plain(xin, last))),
+                 nbytes=8 * n + 12 * (n // cm.TILE),
+                 library=lambda: merge_level_library(cm, xin, last))
+            level_ms[(25, last)] = res["merge_level"]["ms"]
+            level_ms[(25, 0)] = device_ms(lambda: cm.merge_level(
+                level_in[0], 0))
+        del x, tiles, level_in, cur
+    n27 = 1 << 27
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    x = torch.randint(-2**31, 2**31, (n27,), dtype=torch.int32, device=dev,
+                      generator=gen)
+    level_in, cur = merge_levels(cm, cm.tile_sort(x))
+    require(bool((cur[1:] >= cur[:-1]).all()), "merge levels 2^27: not sorted")
+    last27 = len(level_in) - 1
+    for level in (0, last27):
+        level_ms[(27, level)] = device_ms(
+            lambda: cm.merge_level(level_in[level], level))
+    del x, level_in, cur
+    for (log2n, level), ms in sorted(level_ms.items()):
+        b = bound_ms(8 * (1 << log2n) + 12 * ((1 << log2n) // cm.TILE))
+        print(f"[kernels] merge_level 2^{log2n} level {level}: device "
+              f"{ms:.5f} ms, bound {b:.5f} ms, share {b / ms:.3f}",
+              flush=True)
+    t = res["tile_sort"]
+    print(f"[kernels] tile_sort 2^25: device {t['ms']:.5f} ms, bound "
+          f"{t['bound_ms']:.5f} ms, share {t['bound_ms'] / t['ms']:.3f}; "
+          f"plain {t['plain_ms']:.3f} ms; torch.sort of the tiles "
+          f"{t['library_ms']:.3f} ms; merge_level plain "
+          f"{res['merge_level']['plain_ms']:.3f} ms, torch.sort of the "
+          f"pairs {res['merge_level']['library_ms']:.3f} ms", flush=True)
+
+
+def merge_level_library(cm, x, level):
+    """One PyTorch call that gives merge_level's output: a sort of each
+    pair of runs of 2^level tiles (key-only int32, so the order is unique;
+    the splits are a side output the sort never asks for)."""
+    return torch.sort(x.view(-1, 2 * (cm.TILE << level)), dim=-1)
+
+
+def merge_levels(cm, tiles):
+    """Every merge level of a sort from sorted tiles: each level's input by
+    level, and the sorted result."""
+    level_in, cur = [], tiles
+    for level in range((tiles.numel() // cm.TILE).bit_length() - 1):
+        level_in.append(cur)
+        cur, _ = cm.merge_level(cur, level)
+    return level_in, cur
 
 
 def phase_onesweep(dev, rt, cr, note, res):
@@ -557,6 +634,56 @@ def phase_profile(dev, rt):
     print(f"[profile] sort u32 key-only 2^25, {sorts} back to back: "
           f"{wall:.4f} ms a sort (events), device busy {busy:.4f} ms, idle "
           f"share {1 - busy / wall:.4f}", flush=True)
+
+
+def phase_merge_profile(dev, rt):
+    """A u32 key-only merge sort at 2^25 and 2^27: its launches (one
+    tile_sort and one merge_level a level, and no other kernel of the
+    package), torch.profiler's device time a sort by kernel (no split
+    kernel among the rows) and the idle share over back-to-back sorts."""
+    for log2n in (25, 27):
+        n = 1 << log2n
+        levels = (n // 16384).bit_length() - 1
+        keys = rt.dtypes.tensor_from_numpy(
+            rt.datasets.RandomDistributed(np.uint32, seed=0).generate(n), dev)
+        run = lambda: rt.sort(keys, engine="merge")  # noqa: E731
+        run()
+        torch.cuda.synchronize()
+        before = launch_counts()
+        run()
+        torch.cuda.synchronize()
+        delta = {k: v - before[k] for k, v in launch_counts().items()}
+        want = {k: 0 for k in delta}
+        want.update(tile_sort=1, merge_level=levels)
+        require(delta == want, f"a merge sort of 2^{log2n} launched {delta}, "
+                               f"expected {want}")
+        iters = 3
+        rows = _profile(run, iters)
+        names = {e.name for e in rows}
+        require(not any("split" in name for name in names),
+                f"a split kernel ran: {sorted(names)}")
+        merges = [e for e in rows if "merge_level_kernel" in e.name]
+        require(len(merges) == levels * iters,
+                f"{len(merges)} merge_level_kernel rows in {iters} sorts of "
+                f"{levels} levels")
+        total = _ms(rows, iters)
+        tsort = _ms(rows, iters, lambda e: "tile_sort_kernel" in e.name)
+        merge = _ms(merges, iters)
+        sorts = 10
+
+        def loop():
+            for _ in range(sorts):
+                run()
+
+        wall = time_ms(loop) / sorts
+        busy = _ms(_profile(loop, 1), sorts)
+        print(f"[profile] sort u32 key-only engine=merge 2^{log2n}: device "
+              f"{total:.4f} ms a sort: tile_sort {tsort:.4f}, {levels} "
+              f"merge_level {merge:.4f} ({merge / levels:.4f} each), glue "
+              f"{total - tsort - merge:.4f}; launches {delta}; {sorts} back "
+              f"to back: {wall:.4f} ms a sort (events), device busy "
+              f"{busy:.4f} ms, idle share {1 - busy / wall:.4f}", flush=True)
+        del keys
 
 
 def phase_config3(dev, rt):
@@ -745,6 +872,7 @@ def main() -> int:
                                lambda: phase_config4(dev, rt)), radix_kernels)
     # the harness's per-phase timings run the three-launch pass
     merge = run_path("merge", (lambda: phase_merge(dev, rt),
+                               lambda: phase_merge_profile(dev, rt),
                                lambda: phase_topk(dev, rt),
                                lambda: phase_harness(dev, rt)),
                      radix_kernels + ("digit_histogram", "exclusive_scan",

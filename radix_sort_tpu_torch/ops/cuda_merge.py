@@ -121,8 +121,11 @@ def merge_level_plain(x: torch.Tensor, ia, ib, la) -> torch.Tensor:
 def merge_level(x: torch.Tensor, level: int, with_splits: bool = False):
     """Merge the sorted runs of 2^level tiles of ``x`` pairwise.
 
-    The split search runs inside the same call (a warp per output tile on
-    the card), so no per-level torch glue surrounds the kernel.  Returns
+    On the card one launch does the level: its CTAs find their own splits
+    (a producer warp a window buffer), so no per-level torch glue or split
+    launch surrounds it.  The kernel copies the windows with 16-byte bulk
+    copies, so a CUDA ``x`` must start on a 16-byte boundary (a fresh
+    tensor does; a view such as ``buf[1:]`` raises ValueError).  Returns
     (merged, splits), splits the int32 (ia, ib, la) the merge used when
     ``with_splits`` (``level_splits_plain``'s contract), else None."""
     num_tiles = _check_tiles(x, "merge_level input")
@@ -133,6 +136,9 @@ def merge_level(x: torch.Tensor, level: int, with_splits: bool = False):
         splits = level_splits_plain(x, level)
         return merge_level_plain(x, *splits), (splits if with_splits
                                                else None)
+    if x.data_ptr() % 16:
+        raise ValueError("merge_level input on the card must start on a "
+                         "16-byte boundary (the kernel's bulk copies)")
     out = torch.empty_like(x)
     splits = torch.empty((3, num_tiles), dtype=torch.int32, device=x.device)
     _build.check(_lib().rst_merge_level(
@@ -154,7 +160,8 @@ def merge_sort_bits(keys_bits: torch.Tensor) -> torch.Tensor:
 
     Pads to a power-of-two number of tiles with the sentinel (the merge
     pairs runs), so n just above a power of two takes twice its memory;
-    then K5 once and K6 once per level, as ``_merge_sort_i32``."""
+    then K5 once and K6 once per level (one launch each), as
+    ``_merge_sort_i32``."""
     if keys_bits.dtype != torch.int32 or keys_bits.ndim != 1:
         raise ValueError(f"merge_sort_bits takes 1-D int32 bits, got "
                          f"{keys_bits.dtype} {tuple(keys_bits.shape)}")

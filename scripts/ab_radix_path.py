@@ -13,8 +13,9 @@ distributions, ``sort_kv`` of u64 keys at 2^27, ``sort`` of u32 keys at
 permutation that produced the keys) and configs 3 and 4 against numpy.
 
 The last line is a JSON object with every turn's times; the lines before
-it a table: each phase's times by tree, the spread of each tree's turns
-(max - min) and the change's mean over the parent's.  Needs one card.
+it a table: each phase's times by tree and the change's mean over the
+parent's.  Turns, timers and the table are ``scripts/turns.py``'s.  Needs
+one card.
 """
 
 from __future__ import annotations
@@ -22,27 +23,11 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 
 import numpy as np
 
-REPS = 5
-
-
-def _time_ms(torch, fn) -> float:
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(REPS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+import turns
 
 
 def _check(ok: bool, what: str) -> None:
@@ -81,7 +66,7 @@ def worker() -> dict:
         _check(int(bits.sum()) == int(so.sum()), f"{what}: key sum")
         so = rt.dtypes.signed_order(so)
         _check(bool((so[1:] >= so[:-1]).all()), f"{what}: not sorted")
-        times[what] = _time_ms(torch, run)
+        times[what] = turns.time_ms(run)
         del keys, ko, bits, so
 
     n = 1 << 26
@@ -98,7 +83,7 @@ def worker() -> dict:
     out = config3().to_numpy()
     _check(np.array_equal(out["n"], np.bincount(k3[k3 < 500],
                                                 minlength=500)), "config3")
-    times["config3 2^26 rows"] = _time_ms(torch, config3)
+    times["config3 2^26 rows"] = turns.time_ms(config3)
     del t
 
     rng = np.random.default_rng(4)
@@ -111,8 +96,8 @@ def worker() -> dict:
     _, stats = join.hash_join(probe, build, "k")
     _check(int(stats["match_count"]) == int(np.isin(pk, bk).sum()),
            "config4")
-    times["config4 2^20 x 2^18"] = _time_ms(
-        torch, lambda: join.hash_join(probe, build, "k"))
+    times["config4 2^20 x 2^18"] = turns.time_ms(
+        lambda: join.hash_join(probe, build, "k"))
     return {"device": torch.cuda.get_device_name(0), "times": times}
 
 
@@ -127,32 +112,12 @@ def main() -> int:
         return 0
     if len(args.trees) != 2:
         ap.error("give two trees: PARENT_DIR CHANGE_DIR")
-    trees = [os.path.abspath(t) for t in args.trees]
-    turns = []
-    for i in (int(x) for x in args.order.split(",")):
-        res = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--worker"],
-            cwd=trees[i], capture_output=True, text=True,
-            env={**os.environ, "PYTHONPATH": trees[i]})
-        if res.returncode != 0:
-            print(res.stdout[-3000:], res.stderr[-3000:], file=sys.stderr)
-            return res.returncode
-        turn = json.loads(res.stdout.strip().splitlines()[-1])
-        turn["tree"] = i
-        turns.append(turn)
-        print(f"[ab] turn {len(turns)}: tree {i} ({trees[i]}) done",
-              flush=True)
-    phases = list(turns[0]["times"])
-    print(f"{'phase':44s} {'parent ms':>22s} {'change ms':>22s} "
-          f"{'spread p/c':>15s} {'change/parent':>13s}")
-    for ph in phases:
-        by = [[t["times"][ph] for t in turns if t["tree"] == i]
-              for i in (0, 1)]
-        print(f"{ph:44s} {' '.join(f'{v:.3f}' for v in by[0]):>22s} "
-              f"{' '.join(f'{v:.3f}' for v in by[1]):>22s} "
-              f"{max(by[0]) - min(by[0]):7.3f}/{max(by[1]) - min(by[1]):.3f}"
-              f" {np.mean(by[1]) / np.mean(by[0]):13.3f}")
-    print(json.dumps({"trees": trees, "turns": turns}))
+    trees = dict(zip(("parent", "change"),
+                     (os.path.abspath(t) for t in args.trees)))
+    order = [("parent", "change")[int(i)] for i in args.order.split(",")]
+    runs = turns.in_turns(__file__, trees, order)
+    turns.print_table(runs)
+    print(json.dumps({"trees": trees, "runs": runs}))
     return 0
 
 

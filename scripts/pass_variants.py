@@ -16,19 +16,15 @@ from this tree's by one textual substitution:
 
 ``scripts/onesweep_probe.py`` runs in each tree, the trees in turns
 (``--rounds`` times), each in a fresh process that builds its own kernels;
-its rows are printed under the tree's name.  Needs one card.
+its rows are printed under the tree's name.  Trees and runs are
+``scripts/turns.py``'s.  Needs one card.
 """
 
 from __future__ import annotations
 
 import argparse
-import shutil
-import subprocess
-import sys
-from pathlib import Path
 
-ROOT = Path(__file__).resolve().parent.parent
-OUT = ROOT / "build" / "variants"
+import turns
 
 VARIANTS = {
     "acquire": [("ld.relaxed.gpu.global", "ld.acquire.gpu.global"),
@@ -47,41 +43,19 @@ VARIANTS = {
 }
 
 
-def make_tree(name: str, subs) -> Path:
-    tree = OUT / name
-    shutil.rmtree(tree, ignore_errors=True)
-    shutil.copytree(ROOT / "radix_sort_tpu_torch",
-                    tree / "radix_sort_tpu_torch",
-                    ignore=shutil.ignore_patterns("__pycache__"))
-    (tree / "scripts").mkdir(parents=True)
-    shutil.copy(ROOT / "scripts" / "onesweep_probe.py", tree / "scripts")
-    src = tree / "radix_sort_tpu_torch" / "csrc" / "radix.cu"
-    text = src.read_text()
-    for old, new in subs:
-        if old not in text:
-            raise SystemExit(f"variant {name}: {old!r} not in radix.cu")
-        text = text.replace(old, new)
-    src.write_text(text)
-    return tree
-
-
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rounds", type=int, default=2)
     args = ap.parse_args()
-    trees = {"as_is": ROOT}
-    trees.update({name: make_tree(name, subs)
+    trees = {"as_is": turns.ROOT}
+    trees.update({name: turns.make_tree(name, "csrc/radix.cu", subs,
+                                        scripts=("onesweep_probe.py",))
                   for name, subs in VARIANTS.items()})
     for _ in range(args.rounds):
         for name, tree in trees.items():
-            res = subprocess.run(
-                [sys.executable, str(tree / "scripts" / "onesweep_probe.py")],
-                capture_output=True, text=True)
+            out = turns.run(tree, [tree / "scripts" / "onesweep_probe.py"])
             print(f"== {name}", flush=True)
-            if res.returncode != 0:
-                print(res.stdout[-2000:], res.stderr[-2000:], flush=True)
-                return res.returncode
-            print("\n".join(line for line in res.stdout.splitlines()
+            print("\n".join(line for line in out.splitlines()
                             if "ms" in line), flush=True)
     return 0
 

@@ -39,6 +39,16 @@ def _keys(kind: str, n: int, seed: int = 0) -> np.ndarray:
         return x
     if kind == "ties":
         return rng.integers(0, 4, n).astype(np.int32)
+    if kind in ("sorted", "reversed"):
+        x = np.sort(rng.integers(-2**31, 2**31, n).astype(np.int32))
+        return x if kind == "sorted" else x[::-1].copy()
+    if kind == "disjoint":
+        # tile i holds keys of [i, i + 1) * 2^17 - 2^30, shuffled: after any
+        # run sort every key of run A lies below every key of run B, so each
+        # output tile takes one whole window (la is 0 or TILE)
+        tile = np.arange(n, dtype=np.int64) // TILE
+        return (tile * 2**17 - 2**30
+                + rng.integers(0, 2**17, n)).astype(np.int32)
     return np.full(n, 7, np.int32)
 
 
@@ -46,14 +56,25 @@ def _runs_sorted(x: np.ndarray, run: int) -> np.ndarray:
     return np.sort(x.reshape(-1, run), axis=1).reshape(-1)
 
 
-def test_tile_sort_matches_pallas():
-    x = _keys("random", 2 * TILE)
+@pytest.mark.parametrize("kind", ["random", "sorted", "reversed",
+                                  "disjoint"])
+def test_tile_sort_matches_pallas(kind):
+    x = _keys(kind, 2 * TILE)
     want = np.asarray(jax.jit(pm.tile_sort)(jnp.asarray(x)))
     got = cm.tile_sort(torch.from_numpy(x))
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("kind", ["random", "ties", "equal"])
+def test_disjoint_keys_take_whole_windows():
+    """The disjoint kind reaches the kernels' one-empty-window case."""
+    for level in range(3):
+        x = _runs_sorted(_keys("disjoint", 8 * TILE, level), TILE << level)
+        la = cm.level_splits_plain(torch.from_numpy(x), level)[2]
+        assert set(la.tolist()) == {0, TILE}
+
+
+@pytest.mark.parametrize("kind", ["random", "ties", "equal", "sorted",
+                                  "reversed", "disjoint"])
 def test_level_splits_match_pallas(kind):
     """8 tiles, levels 0-2: the merge-path splits (ties take from A, the
     last tile of a pair takes the rest of A) equal _level_splits'."""
@@ -66,7 +87,8 @@ def test_level_splits_match_pallas(kind):
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
-@pytest.mark.parametrize("kind", ["random", "ties"])
+@pytest.mark.parametrize("kind", ["random", "ties", "sorted", "reversed",
+                                  "disjoint"])
 @pytest.mark.parametrize("level", [0, 1])
 def test_merge_level_matches_pallas(kind, level):
     """4 tiles: fed the JAX splits, merge_level_plain gives the Pallas
@@ -176,28 +198,77 @@ def test_merge_wrappers_reject_bad_input():
 
 # ------------------------------------------------------------- on the card
 
+KINDS = ["random", "ties", "equal", "sorted", "reversed", "disjoint"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["random", "ties", "equal"])
-def test_cuda_tile_sort_matches_plain(cuda_device, kind):
-    x = torch.from_numpy(_keys(kind, 64 * TILE)).to(cuda_device)
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("tiles", [1, 3, 64, 133])
+def test_cuda_tile_sort_matches_plain(cuda_device, kind, tiles):
+    x = torch.from_numpy(_keys(kind, tiles * TILE, tiles)).to(cuda_device)
     before = cm.tile_sort.launches
     got = cm.tile_sort(x)
     assert cm.tile_sort.launches == before + 1
     torch.testing.assert_close(got, cm.tile_sort_plain(x), rtol=0, atol=0)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["random", "ties", "equal"])
-@pytest.mark.parametrize("level", [0, 2, 5])
-def test_cuda_merge_level_matches_plain(cuda_device, kind, level):
-    x = torch.from_numpy(_runs_sorted(_keys(kind, 64 * TILE, level),
-                                      TILE << level)).to(cuda_device)
+def _check_cuda_level(x, level):
+    before = cm.merge_level.launches
     got, splits = cm.merge_level(x, level, with_splits=True)
+    assert cm.merge_level.launches == before + 1
     want_splits = cm.level_splits_plain(x, level)
     for a, b in zip(splits, want_splits):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     torch.testing.assert_close(got, cm.merge_level_plain(x, *want_splits),
                                rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("level", [0, 2, 5])
+def test_cuda_merge_level_matches_plain(cuda_device, kind, level):
+    x = torch.from_numpy(_runs_sorted(_keys(kind, 64 * TILE, level),
+                                      TILE << level)).to(cuda_device)
+    _check_cuda_level(x, level)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "ties", "disjoint"])
+@pytest.mark.parametrize("tiles, level", [(2, 0), (6, 0), (266, 0),
+                                          (1024, 0), (1024, 4), (1024, 9)])
+def test_cuda_merge_level_tile_counts(cuda_device, kind, tiles, level):
+    """Pair counts that are no multiple of the persistent grid (266 tiles),
+    and 1024 tiles, more than the CTAs that fit on the card at once."""
+    x = torch.from_numpy(_runs_sorted(_keys(kind, tiles * TILE, tiles),
+                                      TILE << level)).to(cuda_device)
+    _check_cuda_level(x, level)
+
+
+@pytest.mark.cuda
+def test_cuda_merge_level_misaligned_view(cuda_device):
+    """A view 4 bytes past a 16-byte boundary is merged right or refused
+    with ValueError; it never reads outside the view."""
+    n = 4 * TILE
+    x = _runs_sorted(_keys("random", n, 9), TILE)
+    buf = torch.full((n + 8,), -1, dtype=torch.int32, device=cuda_device)
+    buf[1:1 + n] = torch.from_numpy(x).to(cuda_device)
+    view = buf[1:1 + n]
+    try:
+        got, _ = cm.merge_level(view, 0)
+    except ValueError:
+        return
+    want = cm.merge_level_plain(view, *cm.level_splits_plain(view, 0))
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_merge_sort_launches(cuda_device):
+    """A merge sort of 2^k tiles: one tile_sort and one merge_level launch a
+    level, nothing else counted."""
+    keys = torch.from_numpy(_keys("random", 16 * TILE)).to(cuda_device)
+    cm.reset_launch_counts()
+    rtt.sort(keys.view(torch.int32), engine="merge")
+    assert cm.launch_counts() == {"tile_sort": 1, "merge_level": 4}
 
 
 @pytest.mark.cuda
