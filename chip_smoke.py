@@ -14,7 +14,7 @@ partition's pass; ``pass_histograms`` at 2^27 for 32- and 64-bit keys;
 disjoint runs, levels 0 and 10 against the plain versions with their
 splits and against ``torch.sort`` of each pair of runs, and
 ``merge_level``'s device time and bound share at level 0 and
-the last level of 2^25 and 2^27), then runs two paths at
+the last level of 2^25 and 2^27), then runs three paths at
 BASELINE sizes through the public entry points, each with the kernels'
 launch counters set to 0 just before it and read just after:
 
@@ -43,12 +43,32 @@ launch counters set to 0 just before it and read just after:
     and ``top_k_kv`` with heavy ties, against numpy;
   - the harness: ``run_all`` over u32/i32/u64/i64 x five distributions at
     2^22, and a key-only ``SortTask`` under ``engine="merge"`` at 2^25,
-    every row valid; the CSV rows are printed.
+    every row valid; the CSV rows are printed;
+
+  the query path (every sort and compaction on the radix kernels; each
+  query also timed with its sorts on ``engine="torch_sort"``)
+  - ``[query]``: the SELECT of examples/query_pipeline.py (filter → join →
+    group_by → sort_by, then the top 3 regions) over 2^26 orders and 2^22
+    customers, checked against ``np.bincount``;
+  - ``[window]``: ``Query.window`` with every kind over 2^22 and 2^26 rows
+    (2^16 partitions, 4099 padding rows), every row of 2^22 against a
+    numpy oracle from ``np.lexsort``, 2^26 by checks on the card; the
+    segmented scans' share of the window's device time;
+  - ``[sort_by]``: three keys (u32, int16 descending, f32) over 2^26 rows
+    against ``np.lexsort``;
+  - ``[segment]``: ``hash_aggregate(method="segment")`` against
+    ``method="scan"`` on config 3's 2^26 rows;
+  - ``[io]``: ``save_table`` / ``load_table`` of 2^24 rows bit for bit and
+    a ``BatchWriter`` of 4 batches;
+  - ``[datasets_device]``: each distribution as u32, i64 and f32 at 2^25
+    made on the card, its contract checked and its sort validated, beside
+    the host generator plus the upload;
+  - ``[examples]``: the three port examples as subprocesses on the card.
 
 Every phase raises on a failure, so the exit code is non-zero and the last
 line is not printed.  The last line is the JSON object
 ``{"ok": true, "device": {...}}``; the line before it lists each kernel with
-its launch count on the two paths, its device time beside the plain
+its launch count on the three paths, its device time beside the plain
 version's (``ms``, ``plain_ms``: CUDA events around 50 back-to-back calls,
 divided by 50), its bound (``bound_ms``: the bytes it must move at 3.35
 TB/s), the time of one PyTorch call that computes the same function where
@@ -60,8 +80,10 @@ Needs one CUDA card; exits non-zero without one.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -841,6 +863,466 @@ def phase_harness(dev, rt):
     sys.stdout.flush()
 
 
+def beside_torch_sort(rt, fn):
+    """time_ms of ``fn(config)`` with the default config (the radix
+    kernels) and with the sorts on engine="torch_sort"."""
+    return (time_ms(lambda: fn(rt.DEFAULT_CONFIG)),
+            time_ms(lambda: fn(rt.SortConfig(engine="torch_sort"))))
+
+
+def phase_query(dev, rt):
+    """The SELECT of examples/query_pipeline.py with its shapes at 2^26
+    orders and 2^22 customers (the example has 200k and 10k), then its top
+    3 regions by revenue, against np.bincount.  At this size the int32
+    revenue sums wrap, in the JAX package as here, so numpy's sums are
+    taken modulo 2^32."""
+    n_orders, n_cust = 1 << 26, 1 << 22
+    rng = np.random.default_rng(0)
+    cust = rng.integers(0, n_cust, n_orders).astype(np.uint32)
+    amount = rng.integers(1, 500, n_orders).astype(np.int32)
+    orders = rt.Table.from_numpy({"cust": cust, "amount": amount},
+                                 device=dev)
+    ids = np.arange(n_cust, dtype=np.uint32)
+    customers = rt.Table.from_numpy({"cust": ids, "region": ids % 7},
+                                    device=dev)
+
+    def joined(config):
+        return (rt.Query(orders, config).filter("amount", "ge", 50)
+                .join(customers, on="cust"))
+
+    def select(config=rt.DEFAULT_CONFIG):
+        return (joined(config).group_by("region", orders=("count", None),
+                                        revenue=("sum", "amount"))
+                .sort_by("region").collect())
+
+    def top(config=rt.DEFAULT_CONFIG):
+        return (joined(config).group_by("region", revenue=("sum", "amount"))
+                .top_k("revenue", 3).collect())
+
+    keep = amount >= 50
+    region = cust[keep] % 7
+    exp_orders = np.bincount(region, minlength=7)
+    exp_rev = np.bincount(region, weights=amount[keep], minlength=7).astype(
+        np.int64).astype(np.int32)
+    res = select().to_numpy()
+    require(np.array_equal(res["region"], np.arange(7, dtype=np.uint32)),
+            "query: regions differ")
+    require(np.array_equal(res["orders"], exp_orders), "query: counts differ")
+    require(np.array_equal(res["revenue"], exp_rev), "query: revenue differs")
+    best = top().to_numpy()
+    require(np.array_equal(best["revenue"], np.sort(exp_rev)[::-1][:3]),
+            "query: top 3 regions differ")
+    ms, ms_t = beside_torch_sort(rt, select)
+    ms_k, ms_kt = beside_torch_sort(rt, top)
+    print(f"[query] filter -> join -> group_by -> sort_by, 2^26 orders x "
+          f"2^22 customers: validated vs np.bincount; {ms:.3f} ms "
+          f"({n_orders / ms / 1e3:.1f} Mrows/s), with torch.sort inside "
+          f"{ms_t:.3f} ms ({n_orders / ms_t / 1e3:.1f} Mrows/s); top 3 "
+          f"regions {ms_k:.3f} ms, with torch.sort {ms_kt:.3f} ms",
+          flush=True)
+
+
+WINDOW_SPECS = {"rn": ("row_number",), "rk": ("rank",),
+                "dr": ("dense_rank",), "cc": ("cum_count",),
+                "s": ("cum_sum", "v"), "fs": ("cum_sum", "f"),
+                "mn": ("cum_min", "v"), "mx": ("cum_max", "v"),
+                "fv": ("first_value", "v"), "lg": ("lag", "v", 1),
+                "ld": ("lead", "v", 3)}
+WINDOW_PARTS = 1 << 16
+PADDING = 4099
+# float running sums: the doubling scan adds a partition's rows in another
+# order than numpy's float64 reference
+FS_RTOL = 1e-5
+
+
+def window_columns(n: int, seed: int) -> dict:
+    """Partition int32 in [0, 2^16), order int32 in [0, 2^20) with a third
+    of the rows on 64 values (ties in every partition), v int32 in
+    [-50, 50), f float32 in [0, 100)."""
+    rng = np.random.default_rng(seed)
+    order = rng.integers(0, 1 << 20, n).astype(np.int32)
+    order[::3] >>= 14
+    return {"p": rng.integers(0, WINDOW_PARTS, n).astype(np.int32),
+            "o": order, "v": rng.integers(-50, 50, n).astype(np.int32),
+            "f": (rng.random(n) * 100).astype(np.float32)}
+
+
+def window_oracle(cols: dict, m: int) -> dict:
+    """Every output of WINDOW_SPECS for every row, padding rows (index >=
+    m) included, in numpy from the order np.lexsort((position, order,
+    partition, invalid))."""
+    n = cols["p"].size
+    idx = np.arange(n)
+    invalid = idx >= m
+    srt = np.lexsort((idx, cols["o"], cols["p"], invalid))
+    p, o, inv = cols["p"][srt], cols["o"][srt], invalid[srt]
+    v = cols["v"][srt].astype(np.int64)
+    part_new = np.ones(n, bool)
+    part_new[1:] = (p[1:] != p[:-1]) | (inv[1:] != inv[:-1])
+    order_new = part_new.copy()
+    order_new[1:] |= o[1:] != o[:-1]
+    start = np.maximum.accumulate(np.where(part_new, idx, 0))
+    tie_start = np.maximum.accumulate(np.where(order_new, idx, 0))
+    run = np.cumsum(part_new)
+    rn = idx - start + 1
+
+    def seg_sum(x):
+        c = np.cumsum(x)
+        return c - c[start] + x[start]
+
+    def seg_max(x):  # x in [0, 256): partitions are 256 apart
+        return np.maximum.accumulate(run * 256 + x) - run * 256
+
+    nxt = np.minimum(idx + 3, n - 1)
+    lead_ok = (idx + 3 < n) & (run[nxt] == run)
+    out = {"rn": rn, "cc": rn, "rk": tie_start - start + 1,
+           "dr": seg_sum(order_new.astype(np.int64)), "s": seg_sum(v),
+           "fs": seg_sum(cols["f"][srt].astype(np.float64)),
+           "mx": seg_max(v + 50) - 50, "mn": 49 - seg_max(49 - v),
+           "fv": v[start], "lg": np.where(rn > 1, np.roll(v, 1), 0),
+           "ld": np.where(lead_ok, v[nxt], 0)}
+    back = {}
+    for k, x in out.items():
+        back[k] = np.empty_like(x)
+        back[k][srt] = x
+    return back
+
+
+def check_window_on_card(rt, t, out, cols, m):
+    """Checks of a window over m valid rows that need no per-row oracle:
+    the row numbers place every row of a partition once, in (order,
+    position) order; each partition's last cum_sum, cum_min and cum_max are
+    its sum, min and max; first_value, lag and lead are the values of the
+    first row and of the sorted neighbours."""
+    dev = t.device
+    P = WINDOW_PARTS
+    p, o, v = t["p"][:m].long(), t["o"][:m], t["v"][:m]
+    rn = out["rn"][:m].long()
+    host_p = cols["p"][:m]
+    cnt = torch.from_numpy(np.bincount(host_p, minlength=P)).to(dev)
+    require(bool((cnt > 0).all()), "window: an empty partition")
+    max_rn = torch.zeros(P, dtype=torch.int64, device=dev).scatter_reduce_(
+        0, p, rn, "amax")
+    require(torch.equal(max_rn, cnt), "window: max row_number != size")
+    require(torch.equal(out["cc"], out["rn"]), "window: cum_count != rn")
+    starts = torch.cumsum(cnt, 0) - cnt
+    pos = starts[p] + rn - 1  # the row's place in the sorted order
+    require(bool((torch.bincount(pos, minlength=m) == 1).all()),
+            "window: row numbers do not number each partition once")
+    row_at = torch.empty(m, dtype=torch.int64, device=dev)
+    row_at[pos] = torch.arange(m, device=dev)
+    ps, os_ = p[row_at], o[row_at]
+    later = (ps[1:] > ps[:-1]) | ((ps[1:] == ps[:-1]) & (
+        (os_[1:] > os_[:-1]) | ((os_[1:] == os_[:-1])
+                                & (row_at[1:] > row_at[:-1]))))
+    require(bool(later.all()), "window: row numbers do not follow "
+                               "(partition, order, position)")
+    last = rn == cnt[p]
+
+    def at_last(name):
+        """The column's value at each partition's last row, by partition."""
+        c = out[name][:m]
+        return torch.zeros(P, dtype=c.dtype, device=dev).index_copy_(
+            0, p[last], c[last])
+
+    require(np.array_equal(at_last("s").cpu().numpy(), np.bincount(
+        host_p, weights=cols["v"][:m], minlength=P).astype(np.int32)),
+        "window: last cum_sum != partition sum")
+    fs = at_last("fs").cpu().numpy()
+    require(np.allclose(fs, np.bincount(host_p, weights=cols["f"][:m].astype(
+        np.float64), minlength=P), rtol=FS_RTOL),
+        "window: last float cum_sum != partition sum")
+    for name, red in (("mn", "amin"), ("mx", "amax")):
+        want = torch.zeros(P, dtype=v.dtype, device=dev).scatter_reduce_(
+            0, p, v, red, include_self=False)
+        require(torch.equal(at_last(name), want),
+                f"window: last {name} != partition {red}")
+    vs = v[row_at]  # v in the sorted order
+    require(torch.equal(out["fv"][:m], vs[starts][p]),
+            "window: first_value != the partition's first value")
+    require(torch.equal(out["lg"][:m], torch.where(
+        rn > 1, vs[(pos - 1).clamp_min(0)], 0)), "window: lag differs")
+    require(torch.equal(out["ld"][:m], torch.where(
+        rn + 3 <= cnt[p], vs[(pos + 3).clamp_max(m - 1)], 0)),
+        "window: lead differs")
+
+
+def scan_share(rt, run):
+    """Device time of one ``run()`` and of the segmented scans inside it,
+    from torch.profiler's kernel rows: the scans' calls are recorded
+    during one run and replayed alone."""
+    from radix_sort_tpu_torch.ops import window as win
+
+    calls = []
+    real = {"_segmented_scan": win._segmented_scan,
+            "run_starts": win.run_starts}
+
+    def recorder(fn):
+        def rec(*a, **kw):
+            calls.append((fn, a, kw))
+            return fn(*a, **kw)
+        return rec
+
+    for name, fn in real.items():
+        setattr(win, name, recorder(fn))
+    try:
+        run()
+    finally:
+        for name, fn in real.items():
+            setattr(win, name, fn)
+
+    def replay():
+        for fn, a, kw in calls:
+            fn(*a, **kw)
+
+    replay()
+    total = _ms(_profile(run, 1), 1)
+    scans = _ms(_profile(replay, 1), 1)
+    return total, scans, len(calls)
+
+
+def phase_window(dev, rt):
+    """Query.window with every kind over 2^22 rows (every row, padding
+    included, against window_oracle) and 2^26 rows (check_window_on_card),
+    2^16 partitions, num_rows = capacity - 4099; timed beside
+    engine="torch_sort", and the segmented scans' share of the device
+    time."""
+    for log2n in (22, 26):
+        n = 1 << log2n
+        m = n - PADDING
+        cols = window_columns(n, seed=log2n)
+        t = rt.Table.from_numpy(cols, num_rows=m, device=dev)
+
+        def run(config=rt.DEFAULT_CONFIG):
+            return rt.Query(t, config).window("p", "o",
+                                              **WINDOW_SPECS).collect()
+
+        out = run()
+        require(int(out.num_rows) == m and out.capacity == n,
+                "window: num_rows or capacity changed")
+        if log2n == 22:
+            want = window_oracle(cols, m)
+            for name, w in want.items():
+                got = rt.dtypes.tensor_to_numpy(out[name])
+                ok = (np.allclose(got, w, rtol=FS_RTOL) if name == "fs"
+                      else np.array_equal(got, w))
+                require(ok, f"window 2^22: {name} differs from the oracle")
+            how = "every row vs a numpy lexsort oracle"
+        else:
+            check_window_on_card(rt, t, out, cols, m)
+            how = "partition sizes, sums, min/max, first/lag/lead on the card"
+        del out
+        ms, ms_t = beside_torch_sort(rt, run)
+        total, scans, n_calls = scan_share(rt, run)
+        print(f"[window] Query.window, 11 specs (every kind), 2^{log2n} rows, "
+              f"2^16 partitions, {PADDING} padding rows: validated ({how}); "
+              f"{ms:.3f} ms ({n / ms / 1e3:.1f} Mrows/s), with torch.sort "
+              f"{ms_t:.3f} ms; device {total:.3f} ms, segmented scans "
+              f"({n_calls} calls) {scans:.3f} ms, share {scans / total:.3f}",
+              flush=True)
+        del t
+
+
+def phase_sort_by(dev, rt):
+    """Query.sort_by on three keys (u32 ascending, int16 descending, f32
+    ascending) over 2^26 rows with padding, against np.lexsort."""
+    n = 1 << 26
+    m = n - PADDING
+    rng = np.random.default_rng(12)
+    cols = {"a": rng.integers(0, 1 << 10, n).astype(np.uint32),
+            "b": rng.integers(-2**15, 2**15, n).astype(np.int16),
+            "c": rng.standard_normal(n).astype(np.float32),
+            "row": np.arange(n, dtype=np.int32)}
+    t = rt.Table.from_numpy(cols, num_rows=m, device=dev)
+
+    def run(config=rt.DEFAULT_CONFIG):
+        return rt.Query(t, config).sort_by(
+            "a", "b", "c", descending=[False, True, False]).collect()
+
+    out = run().to_numpy()
+    order = np.lexsort((cols["c"][:m], -cols["b"][:m].astype(np.int32),
+                        cols["a"][:m]))
+    require(np.array_equal(out["row"], order), "sort_by: order differs "
+                                               "from np.lexsort")
+    for k in ("a", "b", "c"):
+        require(np.array_equal(out[k], cols[k][:m][order]),
+                f"sort_by: column {k} differs")
+    ms, ms_t = beside_torch_sort(rt, run)
+    print(f"[sort_by] u32 asc, int16 desc, f32 asc over 2^26 rows: "
+          f"validated vs np.lexsort; {ms:.3f} ms ({n / ms / 1e3:.1f} "
+          f"Mrows/s), with torch.sort {ms_t:.3f} ms "
+          f"({n / ms_t / 1e3:.1f} Mrows/s)", flush=True)
+
+
+# float sums over ~67k rows a group, added in another order by each method
+SEGMENT_RTOL = 1e-4
+
+
+def phase_segment(dev, rt):
+    """hash_aggregate(method="segment") against method="scan" on config
+    3's data (2^26 rows, k < 500), with a float column: integer columns
+    and means equal, float sums at SEGMENT_RTOL."""
+    from radix_sort_tpu_torch.ops import aggregate, filter as filt
+
+    n = 1 << 26
+    rng = np.random.default_rng(3)
+    keys = rng.integers(0, 1000, n).astype(np.uint32)
+    vals = rng.integers(0, 100, n).astype(np.int32)
+    f = (rng.random(n) * 100).astype(np.float32)
+    t = rt.Table.from_numpy({"k": keys, "x": vals, "f": f}, device=dev)
+    aggs = {"n": ("count", None), "s": ("sum", "x"), "lo": ("min", "x"),
+            "hi": ("max", "x"), "m": ("mean", "x"), "fs": ("sum", "f")}
+
+    def run(method, config=rt.DEFAULT_CONFIG):
+        return aggregate.hash_aggregate(
+            filt.filter_expr(t, "k", "lt", 500, config=config), "k", aggs,
+            config=config, method=method)
+
+    seg, scan = run("segment").to_numpy(), run("scan").to_numpy()
+    mask = keys < 500
+    require(np.array_equal(seg["n"], np.bincount(keys[mask], minlength=500)),
+            "segment: counts differ from np.bincount")
+    for k, want in scan.items():
+        got = seg[k]
+        require(got.dtype == want.dtype, f"segment: {k} dtype {got.dtype} "
+                                         f"!= {want.dtype}")
+        ok = (np.allclose(got, want, rtol=SEGMENT_RTOL) if k == "fs"
+              else np.array_equal(got, want))
+        require(ok, f"segment: {k} differs from method='scan'")
+    ms, ms_t = beside_torch_sort(rt, lambda c: run("segment", c))
+    ms_scan = time_ms(lambda: run("scan"))
+    print(f"[segment] filter(k<500) -> hash_aggregate(method='segment') of "
+          f"count/sum/min/max/mean + f32 sum, 2^26 rows: equal to "
+          f"method='scan' (f32 sums rtol {SEGMENT_RTOL}); {ms:.3f} ms "
+          f"({n / ms / 1e3:.1f} Mrows/s), with torch.sort {ms_t:.3f} ms; "
+          f"method='scan' {ms_scan:.3f} ms", flush=True)
+
+
+def phase_io(dev, rt):
+    """save_table / load_table of 2^24 rows (uint32, int64, float32, 1000
+    padding rows) bit for bit, and a BatchWriter of 4 batches read back by
+    iter_batches, in a temporary directory."""
+    n = 1 << 24
+    rng = np.random.default_rng(13)
+    cols = {"u": rng.integers(0, 2**32, n, dtype=np.uint64).astype(
+                np.uint32),
+            "i": rng.integers(-2**63, 2**63 - 1, n, dtype=np.int64),
+            "f": rng.standard_normal(n).astype(np.float32)}
+    t = rt.Table.from_numpy(cols, num_rows=n - 1000, device=dev)
+    c = rt.dtypes.as_container
+
+    def same(a, b):
+        return (a.capacity == b.capacity
+                and int(a.num_rows) == int(b.num_rows)
+                and all(a[k].dtype == b[k].dtype and a[k].device == b[k].device
+                        and torch.equal(c(a[k]), c(b[k])) for k in cols))
+
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        path = rt.io.save_table(t, os.path.join(d, "t"))
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = rt.io.load_table(path, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        require(same(back, t), "io: the loaded table differs")
+        q = n // 4
+        parts = [rt.Table({k: v[i * q:(i + 1) * q] for k, v in t.columns.items()},
+                          num_rows=q - i) for i in range(4)]
+        w = rt.io.BatchWriter(os.path.join(d, "runs"))
+        for part in parts:
+            w.write(part)
+        w.finish()
+        loaded = list(rt.io.iter_batches(os.path.join(d, "runs"),
+                                         device=dev))
+        require(len(loaded) == 4 and all(map(same, loaded, parts)),
+                "io: the batches read back differ")
+        mb = os.path.getsize(path) / 1e6
+    print(f"[io] save_table / load_table 2^24 rows (u32, i64, f32, padding): "
+          f"bit for bit; {mb:.1f} MB saved in {save_s:.3f} s, loaded onto "
+          f"the card in {load_s:.3f} s; BatchWriter 4 batches read back "
+          f"equal", flush=True)
+
+
+def phase_datasets_device(dev, rt):
+    """Every distribution as u32, i64 and f32 at 2^25 made on the card:
+    the contract (dtype, shape, Zeros, Range / InvertedRange equal to the
+    host's, extremes planted, floats in [-1e9, 1e9]), then a sort of it
+    validated by check_sorted_kv; its time beside the host generator plus
+    the upload."""
+    n = 1 << 25
+    dd = rt.datasets_device
+    for dtype in (np.uint32, np.int64, np.float32):
+        d = np.dtype(dtype)
+        hosts = {ds.name: ds for ds in rt.datasets.make_datasets(d, seed=0)}
+        for name in dd.ALL_NAMES:
+            what = f"datasets_device {name} {d.name} 2^25"
+            keys = dd.generate(name, d, n, seed=1, device=dev)
+            require(keys.dtype == rt.dtypes.torch_dtype(d)
+                    and keys.shape == (n,) and keys.device == dev,
+                    f"{what}: dtype, shape or device")
+            host = rt.dtypes.tensor_to_numpy(keys)
+            if name == "Zeros":
+                require(not host.any(), f"{what}: not all zero")
+            elif name in ("Range", "InvertedRange"):
+                require(np.array_equal(host, hosts[name].generate(n)),
+                        f"{what}: differs from the host dataset")
+            else:
+                inner = host[1:-1]
+                if d.kind == "f":
+                    require(np.isfinite(inner).all()
+                            and np.abs(inner).max() <= 1e9,
+                            f"{what}: floats outside [-1e9, 1e9]")
+                if name == "RandomDistributed":
+                    lo, hi = ((-np.inf, np.inf) if d.kind == "f"
+                              else (np.iinfo(d).min, np.iinfo(d).max))
+                    require(host[0] == lo and host[-1] == hi,
+                            f"{what}: extremes not planted")
+            check_sorted_kv(rt, keys, rt.sort(keys), None, host, what)
+            gen_ms = time_ms(lambda: dd.generate(name, d, n, seed=1,
+                                                 device=dev))
+            t0 = time.perf_counter()
+            rt.dtypes.tensor_from_numpy(hosts[name].generate(n), dev)
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3
+            print(f"[datasets_device] {name} {d.name} 2^25: contract and "
+                  f"sort validated; made on the card {gen_ms:.3f} ms, host "
+                  f"generator + upload {host_ms:.1f} ms", flush=True)
+            del keys, host
+
+
+def phase_examples(dev, rt):
+    """The three port examples as subprocesses on the card."""
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def run(*args):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, *args, "--device", "cuda"],
+                           cwd=root, capture_output=True, text=True,
+                           timeout=600)
+        require(r.returncode == 0, f"{args[0]} exited {r.returncode}: "
+                                   f"{r.stderr[-2000:]}")
+        return r.stdout, time.perf_counter() - t0
+
+    out, s = run("examples/torch_basic_sort.py", "--num-elements",
+                 str(1 << 26))
+    require("validation: OK" in out, f"torch_basic_sort: {out[-500:]}")
+    lines = out.strip().splitlines()
+    print(f"[examples] torch_basic_sort.py --num-elements 67108864: "
+          f"{lines[0]} | {lines[-2]} | {lines[-1]} ({s:.1f} s)", flush=True)
+    out, s = run("examples/torch_query_pipeline.py")
+    require("validation: OK" in out, f"torch_query_pipeline: {out[-500:]}")
+    print(f"[examples] torch_query_pipeline.py: validation: OK ({s:.1f} s)",
+          flush=True)
+    with tempfile.TemporaryDirectory() as d:
+        png = os.path.join(d, "viz.png")
+        out, s = run("examples/torch_visualize.py", png)
+        require(os.path.exists(png) and os.path.getsize(png) > 10000,
+                f"torch_visualize: no PNG ({out[-500:]})")
+        print(f"[examples] torch_visualize.py: {out.strip()} "
+              f"({os.path.getsize(png)} bytes, {s:.1f} s)", flush=True)
+
+
 def run_path(name, phases, kernels):
     """Drive one path with every launch counter at 0 before it; require
     each of ``kernels`` to have launched in it.  Returns the counts."""
@@ -878,9 +1360,17 @@ def main() -> int:
                      radix_kernels + ("digit_histogram", "exclusive_scan",
                                       "rank_scatter", "tile_sort",
                                       "merge_level"))
-    launches = {k: radix[k] + merge[k] for k in REPLACES}
+    query = run_path("query", (lambda: phase_query(dev, rt),
+                               lambda: phase_window(dev, rt),
+                               lambda: phase_sort_by(dev, rt),
+                               lambda: phase_segment(dev, rt),
+                               lambda: phase_io(dev, rt),
+                               lambda: phase_datasets_device(dev, rt),
+                               lambda: phase_examples(dev, rt)),
+                     radix_kernels)
+    launches = {k: radix[k] + merge[k] + query[k] for k in REPLACES}
     peak = torch.cuda.max_memory_allocated()
-    print(f"[summary] launches on both paths {launches}; "
+    print(f"[summary] launches on the three paths {launches}; "
           f"max_memory_allocated {peak / 2**30:.2f} GiB; card {card}",
           flush=True)
 

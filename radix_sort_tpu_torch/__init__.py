@@ -12,7 +12,9 @@ Public API (the slice ported so far):
     top_k, top_k_kv                — ordered selection (ops/topk.py)
     SortConfig                     — tuning parameters (config.py)
     Table                          — columnar batch (table.py)
-    filter/aggregate/join ops      — ops/
+    Query                          — the fluent query layer (query.py)
+    filter/aggregate/join/window   — ops/
+    io, datasets_device            — persistence; data made on the device
     convert                        — tables and configs from the JAX package
     harness, utils                 — the reference's task harness, CSV rows,
                                      CLI options and timing
@@ -23,15 +25,16 @@ from .status import OperationStatus, EngineError
 from .ops.sort import sort, sort_kv, argsort
 from .ops.topk import top_k, top_k_kv
 from .table import Table
-from . import convert, datasets, golden, dtypes
+from .query import Query
+from . import convert, datasets, datasets_device, golden, dtypes, io
 
 __version__ = "0.1.0"
 
 __all__ = [
     "sort", "sort_kv", "argsort", "top_k", "top_k_kv",
-    "Table",
+    "Table", "Query",
     "SortConfig", "DEFAULT_CONFIG",
     "OperationStatus", "EngineError",
-    "convert", "datasets", "golden", "dtypes",
+    "convert", "datasets", "datasets_device", "golden", "dtypes", "io",
     "__version__",
 ]

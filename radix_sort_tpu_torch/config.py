@@ -32,7 +32,8 @@ class SortConfig:
     - ``max_input_elems`` — the harness's size guard (the reference's
       ``_NUM_MAX_INPUT_ELEMS``), as in the JAX package.
     - ``engine``          — "auto" (= "radix"), "radix", "merge" or
-      "torch_sort"; see ops/sort.py.
+      "torch_sort", or a JAX engine name mapped onto them; see
+      ops/sort.py.
     """
 
     bits_per_pass: int = 8

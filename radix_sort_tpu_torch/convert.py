@@ -14,14 +14,15 @@ from typing import Mapping
 import numpy as np
 
 from .config import SortConfig
+from .ops.sort import JAX_ENGINES
 from .table import Table
 
 # Fields of the JAX SortConfig the port has no counterpart for: the TPU
 # tile, and an iteration count that nothing reads (the harness takes its
 # count from RadixSortOptions.iterations, as in the JAX package).
 DROPPED_FIELDS = ("block_elems", "perf_iterations")
-# JAX engine names whose port has another name.
-ENGINE_NAMES = {"pallas_merge": "merge"}
+# JAX engine names whose port has another name (ops/sort.py says why).
+ENGINE_NAMES = JAX_ENGINES
 
 
 def table_from_numpy(columns: Mapping[str, np.ndarray], num_rows=None,

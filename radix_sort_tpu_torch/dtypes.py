@@ -156,6 +156,15 @@ def from_sortable(bits: torch.Tensor, dtype) -> torch.Tensor:
 SENTINEL_BITS = -1
 
 
+def complement(bits: torch.Tensor, total_bits: int) -> torch.Tensor:
+    """Reverse the unsigned order of ``total_bits``-wide sortable bits (a
+    descending key), keeping a 16-bit image inside its 16 bits, where a
+    bare ``~`` would set the container's upper bits too."""
+    if total_bits == 8 * bits.element_size():
+        return ~bits
+    return bits ^ ((1 << total_bits) - 1)
+
+
 def signed_order(bits: torch.Tensor) -> torch.Tensor:
     """Sortable bits → a tensor whose SIGNED order is their unsigned order
     (flip the sign bit), for torch's signed comparisons and sorts."""

@@ -13,13 +13,13 @@ from . import cuda_radix
 def exclusive_scan(x: torch.Tensor, engine: str = "torch") -> torch.Tensor:
     """Exclusive prefix sum of a 1-D tensor, in its own dtype.
 
-    engine="torch": ``torch.cumsum``.
-    engine="kernel": the exclusive-scan kernel (int32 only; its plain
-    version on a CPU tensor).
+    engine="torch" (the JAX package's "xla"): ``torch.cumsum``.
+    engine="kernel" (the JAX package's "pallas"): the exclusive-scan kernel
+    (int32 only; its plain version on a CPU tensor).
     """
-    if engine == "kernel":
+    if engine in ("kernel", "pallas"):
         return cuda_radix.exclusive_scan(x)
-    if engine != "torch":
+    if engine not in ("torch", "xla"):
         raise ValueError(f"unknown scan engine {engine!r}")
     return torch.cumsum(x, 0, dtype=x.dtype) - x
 

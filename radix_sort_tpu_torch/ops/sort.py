@@ -18,7 +18,13 @@ Engines:
   - ``torch_sort``: ``torch.sort(stable=True)``, the speed baseline on the
     same card.  ``auto`` never chooses it.
 
-The JAX package's other engines are not ported yet and raise.
+The JAX package's engine names are accepted too (``JAX_ENGINES``):
+``pallas``, ``pallas_stream`` and ``xla_radix`` are all the JAX package's
+stable LSD radix sort, so they run ``radix`` (the kernels on a CUDA
+tensor); ``xla_sort`` is the platform's library sort, so it runs
+``torch_sort``, chosen by that name and never as a fallback;
+``pallas_merge`` runs ``merge``.  ``chunked`` is not ported yet and
+raises.
 """
 
 from __future__ import annotations
@@ -35,11 +41,15 @@ from ..status import EngineError, OperationStatus
 from . import cuda_merge, cuda_radix
 
 ENGINES = ("auto", "radix", "merge", "torch_sort")
-NOT_YET_PORTED = ("xla_sort", "xla_radix", "pallas", "pallas_stream",
-                  "chunked")
+# JAX engine name -> the port's engine that does the same work
+JAX_ENGINES = {"pallas": "radix", "pallas_stream": "radix",
+               "xla_radix": "radix", "xla_sort": "torch_sort",
+               "pallas_merge": "merge"}
+NOT_YET_PORTED = ("chunked",)
 
 
 def _dispatch_engine(engine: str) -> str:
+    engine = JAX_ENGINES.get(engine, engine)
     if engine == "auto":
         return "radix"
     if engine in ENGINES:

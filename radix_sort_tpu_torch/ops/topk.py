@@ -29,17 +29,9 @@ from ..table import Table
 from . import sort as sort_ops
 
 
-def _complement(bits: torch.Tensor, total_bits: int) -> torch.Tensor:
-    """Reverse the unsigned order of ``total_bits``-wide sortable bits,
-    keeping a 16-bit image inside its 16 bits."""
-    if total_bits == 8 * bits.element_size():
-        return ~bits
-    return bits ^ ((1 << total_bits) - 1)
-
-
 def _scores(bits: torch.Tensor, largest: bool, total_bits: int):
     """Sortable image where 'better' is larger in unsigned order."""
-    return bits if largest else _complement(bits, total_bits)
+    return bits if largest else dtypes.complement(bits, total_bits)
 
 
 def _check_k(k: int, n: int):
@@ -73,11 +65,12 @@ def _top_k_impl(bits: torch.Tensor, payloads, k: int, largest: bool,
     # Sorting the COMPLEMENT of the score ascends best-first with ties in
     # row order (reversing an ascending stable sort would reverse them).
     inv_sorted, pls = sort_ops.sort_biased_kv(
-        _complement(score, total_bits), tuple(payloads), config, total_bits)
+        dtypes.complement(score, total_bits), tuple(payloads), config,
+        total_bits)
     # the sorted complement of the score, which for ``largest=False`` is
     # the key bits themselves
     out = inv_sorted[:k]
-    return (_complement(out, total_bits) if largest else out,
+    return (dtypes.complement(out, total_bits) if largest else out,
             tuple(p[:k] for p in pls))
 
 

@@ -56,8 +56,19 @@ class Table:
     def column_names(self):
         return tuple(sorted(self.columns))
 
+    def column(self, name: str) -> torch.Tensor:
+        return self.columns[name]
+
     def __getitem__(self, name: str) -> torch.Tensor:
         return self.columns[name]
+
+    def with_columns(self, **new_cols) -> "Table":
+        """The same rows with columns added or replaced; ``num_rows`` is
+        kept, and a column of another length or device raises."""
+        return Table({**self.columns, **new_cols}, self.num_rows)
+
+    def select(self, names) -> "Table":
+        return Table({n: self.columns[n] for n in names}, self.num_rows)
 
     def valid_mask(self) -> torch.Tensor:
         """Boolean mask of real (non-padding) rows."""

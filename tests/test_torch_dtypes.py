@@ -32,8 +32,9 @@ def test_package_imports_no_jax():
     code = ("import sys, radix_sort_tpu_torch\n"
             "from radix_sort_tpu_torch.ops import aggregate, cuda_merge, "
             "cuda_radix, filter, join, partition, ranking, scan, sort, "
-            "stream, topk\n"
-            "from radix_sort_tpu_torch import _build, convert, harness, table\n"
+            "stream, topk, window\n"
+            "from radix_sort_tpu_torch import _build, convert, harness, "
+            "table, query, io, datasets_device\n"
             "from radix_sort_tpu_torch.utils import cli, csvio, "
             "native_baseline, profiling, stats\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
@@ -180,6 +181,47 @@ def test_table_from_jax_table_roundtrip():
     h, jh = t.head(10), jt.head(10)
     assert h.capacity == jh.capacity and int(h.num_rows) == int(jh.num_rows)
     assert t.column_names == jt.column_names
+
+
+def test_table_column_with_columns_select_match_jax():
+    """column, with_columns and select give the JAX Table's columns and
+    keep num_rows; select orders nothing (column_names are sorted)."""
+    rng = np.random.default_rng(6)
+    cols = {"u": rng.integers(0, 2**32, 32, dtype=np.uint64).astype(
+                np.uint32),
+            "f": rng.standard_normal(32).astype(np.float32),
+            "i": np.arange(32, dtype=np.int64)}
+    jt = JTable({k: jnp.asarray(v) for k, v in cols.items()}, num_rows=20)
+    t = Table({k: tdt.tensor_from_numpy(v, "cpu") for k, v in cols.items()},
+              num_rows=20)
+    assert t.column("u") is t["u"]
+    np.testing.assert_array_equal(tdt.tensor_to_numpy(t.column("u")),
+                                  np.asarray(jt.column("u")))
+    extra = np.arange(32, dtype=np.int32) * 3
+    w, jw = (t.with_columns(x=torch.from_numpy(extra), f=t["i"]),
+             jt.with_columns(x=jnp.asarray(extra), f=jt["i"]))
+    s, js = w.select(["x", "u"]), jw.select(["x", "u"])
+    for got, want in ((w, jw), (s.select(("u",)), js.select(("u",))), (s, js)):
+        assert got.column_names == want.column_names
+        assert int(got.num_rows) == int(want.num_rows) == 20
+        assert got.capacity == want.capacity
+        g, wn = got.to_numpy(), want.to_numpy()
+        for k in wn:
+            assert g[k].dtype == wn[k].dtype
+            np.testing.assert_array_equal(g[k], wn[k])
+    with pytest.raises(KeyError):
+        t.select(["nope"])
+    assert t.column_names == ("f", "i", "u")  # the original is unchanged
+
+
+def test_table_with_columns_rejects_bad_columns():
+    t = Table({"a": torch.zeros(4)}, num_rows=2)
+    with pytest.raises(rtt.EngineError):
+        t.with_columns(b=torch.zeros(5))
+    with pytest.raises(rtt.EngineError):
+        t.with_columns(b=torch.zeros((4, 1)))
+    with pytest.raises(rtt.EngineError):  # another device than the table's
+        t.with_columns(b=torch.zeros(4, device="meta"))
 
 
 def test_table_rejects_bad_columns():

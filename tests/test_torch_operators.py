@@ -19,8 +19,7 @@ import pytest
 from radix_sort_tpu.ops import aggregate as jagg, filter as jfilt
 from radix_sort_tpu.ops import join as jjoin
 from radix_sort_tpu.table import Table as JTable
-from radix_sort_tpu_torch import convert
-from radix_sort_tpu_torch.status import EngineError
+from radix_sort_tpu_torch import convert, dtypes as tdt
 from radix_sort_tpu_torch.ops import aggregate, filter as filt, join
 
 SENT32 = np.uint32(0xFFFFFFFF)
@@ -133,9 +132,66 @@ def test_hash_aggregate_rejects():
     jt, tt = both({"k": np.arange(4, dtype=np.int32)})
     with pytest.raises(ValueError):
         aggregate.hash_aggregate(tt, "k", {"x": ("median", "k")})
-    with pytest.raises(EngineError):
+    with pytest.raises(ValueError):
         aggregate.hash_aggregate(tt, "k", {"n": ("count", None)},
-                                 method="segment")
+                                 method="no_such_method")
+
+
+def assert_capacity_equal(got, want, float_rtol=None):
+    """Every row of the capacity, padding included, and num_rows."""
+    assert int(got.num_rows) == int(want.num_rows)
+    assert got.capacity == want.capacity
+    for k, w in want.columns.items():
+        g, w = tdt.tensor_to_numpy(got[k]), np.asarray(w)
+        assert g.dtype == w.dtype, (k, g.dtype, w.dtype)
+        if float_rtol is not None and w.dtype.kind == "f":
+            np.testing.assert_allclose(g, w, rtol=float_rtol[w.dtype])
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=k)
+
+
+@pytest.mark.parametrize("vdtype", AGG_VALUE_DTYPES,
+                         ids=["i32", "i64", "f32", "f64"])
+@pytest.mark.parametrize("kdtype", [np.uint32, np.int64, np.float64],
+                         ids=["u32", "i64", "f64"])
+def test_hash_aggregate_segment_matches_jax(kdtype, vdtype):
+    """method="segment" against the JAX package's: every row of the
+    capacity, the empty segments' identities and the padding segment
+    included; an int32 mean is float32, as there."""
+    rng = np.random.default_rng(3)
+    n = 2000
+    k = _keys(rng, kdtype, n, 50)
+    if np.dtype(vdtype).kind == "f":
+        v = rng.random(n).astype(vdtype) * 100
+    else:
+        v = rng.integers(-1000, 1000, n).astype(vdtype)
+    jt, tt = both({"k": k, "v": v}, num_rows=1900)
+    aggs = {"n": ("count", None), "s": ("sum", "v"), "lo": ("min", "v"),
+            "hi": ("max", "v"), "m": ("mean", "v")}
+    got = aggregate.hash_aggregate(tt, "k", aggs, method="segment")
+    assert_capacity_equal(got, jx(lambda t: jagg.hash_aggregate(
+        t, "k", aggs, method="segment"), jt), float_rtol=RTOL)
+    # the two methods agree on the groups
+    assert_tables_equal(got, aggregate.hash_aggregate(tt, "k", aggs),
+                        float_rtol=RTOL)
+
+
+@pytest.mark.parametrize("vdtype", [np.uint32, np.uint64, np.int16],
+                         ids=["u32", "u64", "i16"])
+def test_hash_aggregate_segment_unsigned_and_narrow_values(vdtype):
+    rng = np.random.default_rng(4)
+    n = 600
+    k = np.full(n, SENT32)
+    k[:100] = rng.integers(0, 5, 100)
+    info = np.iinfo(vdtype)
+    v = rng.integers(info.min, info.max, n, dtype=vdtype, endpoint=True)
+    jt, tt = both({"k": k, "v": v}, num_rows=500)
+    aggs = {"n": ("count", None), "s": ("sum", "v"), "lo": ("min", "v"),
+            "hi": ("max", "v"), "m": ("mean", "v")}
+    assert_capacity_equal(
+        aggregate.hash_aggregate(tt, "k", aggs, method="segment"),
+        jx(lambda t: jagg.hash_aggregate(t, "k", aggs, method="segment"),
+           jt), float_rtol=RTOL)
 
 
 @pytest.mark.parametrize("num_rows", [None, 700])

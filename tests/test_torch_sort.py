@@ -6,6 +6,8 @@ port's; keys must agree bit for bit and the payload must be the stable
 permutation of ``golden.oracle_argsort``.  On this CPU the port's radix
 engine runs its kernels' plain versions."""
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,9 +16,9 @@ import torch
 import radix_sort_tpu as rst
 import radix_sort_tpu_torch as rtt
 from radix_sort_tpu import datasets as jds, golden
-from radix_sort_tpu.ops import pallas_stream as ps
-from radix_sort_tpu_torch import dtypes as tdt
-from radix_sort_tpu_torch.ops import stream
+from radix_sort_tpu.ops import pallas_stream as ps, scan as jscan
+from radix_sort_tpu_torch import convert, dtypes as tdt
+from radix_sort_tpu_torch.ops import scan, sort as sort_ops, stream
 
 N = 3001
 ALL_DTYPES = [np.uint32, np.int32, np.uint64, np.int64, np.float32,
@@ -116,11 +118,109 @@ def test_tuple_payload_and_engines_agree():
     assert torch.equal(c_a, r_a)
 
 
-@pytest.mark.parametrize("engine", ["pallas_stream", "chunked", "xla_sort",
-                                    "no_such_engine"])
+@pytest.mark.parametrize("engine", ["chunked", "no_such_engine"])
 def test_unported_engines_raise(engine):
     with pytest.raises(rtt.EngineError):
         rtt.sort(torch.arange(5, dtype=torch.int32), engine=engine)
+
+
+JAX_ENGINE_NAMES = ["pallas", "pallas_stream", "xla_radix", "xla_sort"]
+
+
+def _tied_keys(n=1000, high=64):
+    rng = np.random.default_rng(40)
+    keys = rng.integers(0, high, n).astype(np.uint32)
+    keys[:2] = (0, high - 1)
+    return keys
+
+
+@pytest.mark.parametrize("engine", JAX_ENGINE_NAMES)
+def test_jax_engine_names_match_jax(engine):
+    """sort_kv, sort and argsort under each JAX engine name give the JAX
+    package's results under that engine: heavy ties, a stable payload.
+
+    For ``pallas_stream`` the keys lie below 2^4 and the JAX side runs the
+    engine's kernels (``pallas_stream.sort_planes``) over those 4 bits at
+    radix 4: its full-width passes take minutes to interpret on the CPU,
+    and the passes above a key's width leave the order as it is."""
+    keys = _tied_keys(high=16 if engine == "pallas_stream" else 64)
+    vals = np.arange(keys.size, dtype=np.int32)
+    if engine == "pallas_stream":
+        jk, (jv,) = ps.sort_planes(jnp.asarray(keys), (jnp.asarray(vals),),
+                                   radix=4, total_bits=4)
+        jsorted = jk
+    else:
+        jk, jv = rst.sort_kv(jnp.asarray(keys), jnp.asarray(vals),
+                             engine=engine)
+        jsorted = rst.sort(jnp.asarray(keys), engine=engine)
+    tk = tdt.tensor_from_numpy(keys, "cpu")
+    ok, ov = rtt.sort_kv(tk, torch.from_numpy(vals), engine=engine)
+    np.testing.assert_array_equal(tdt.tensor_to_numpy(ok), np.asarray(jk))
+    np.testing.assert_array_equal(ov.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(ov.numpy(), golden.oracle_argsort(keys))
+    np.testing.assert_array_equal(
+        tdt.tensor_to_numpy(rtt.sort(tk, engine=engine)), np.asarray(jsorted))
+    np.testing.assert_array_equal(rtt.argsort(tk, engine=engine).numpy(),
+                                  np.asarray(jv))
+
+
+@pytest.mark.parametrize("engine", JAX_ENGINE_NAMES + ["pallas_merge"])
+def test_jax_engine_names_map_to_port_engines(engine, monkeypatch):
+    """The dispatch and convert share one table; a converted JAX config
+    sorts, and names the engine that does the work."""
+    cfg = convert.sort_config_from_fields(
+        dataclasses.asdict(rst.SortConfig(engine=engine)))
+    assert cfg.engine == sort_ops.JAX_ENGINES[engine]
+    assert convert.ENGINE_NAMES is sort_ops.JAX_ENGINES
+    assert sort_ops._dispatch_engine(engine) == cfg.engine
+    used = []
+    monkeypatch.setattr(sort_ops, "_torch_sort_engine",
+                        lambda k, p, real=sort_ops._torch_sort_engine:
+                        used.append("torch_sort") or real(k, p))
+    keys = tdt.tensor_from_numpy(_tied_keys(), "cpu")
+    want = np.sort(_tied_keys())
+    for c in (cfg, rtt.SortConfig(engine=engine)):
+        np.testing.assert_array_equal(
+            tdt.tensor_to_numpy(rtt.sort(keys, config=c)), want)
+    assert used == (["torch_sort"] * 2 if engine == "xla_sort" else [])
+
+
+@pytest.mark.parametrize("engine", ["xla", "pallas", "torch", "kernel"])
+def test_exclusive_scan_engine_names_match_jax(engine):
+    x = np.random.default_rng(41).integers(-2**31, 2**31, 3001).astype(
+        np.int32)
+    jname = {"torch": "xla", "kernel": "pallas"}.get(engine, engine)
+    want = np.asarray(jscan.exclusive_scan(jnp.asarray(x), engine=jname))
+    got = scan.exclusive_scan(torch.from_numpy(x), engine=engine).numpy()
+    np.testing.assert_array_equal(got, want)
+    with pytest.raises(ValueError):
+        scan.exclusive_scan(torch.from_numpy(x), engine="nope")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", JAX_ENGINE_NAMES)
+def test_cuda_jax_engine_names_launch_the_kernels(engine):
+    """On the card pallas, pallas_stream and xla_radix launch the radix
+    kernels (xla_radix is not the plain version there); xla_sort is
+    torch.sort and launches none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from radix_sort_tpu_torch.ops import cuda_radix
+
+    keys = np.random.default_rng(42).integers(0, 2**32, 1 << 20,
+                                              dtype=np.uint64).astype(
+                                                  np.uint32)
+    vals = np.arange(keys.size, dtype=np.int32)
+    cuda_radix.reset_launch_counts()
+    ok, ov = rtt.sort_kv(tdt.tensor_from_numpy(keys, "cuda"),
+                         torch.from_numpy(vals).cuda(), engine=engine)
+    torch.cuda.synchronize()
+    counts = cuda_radix.launch_counts()
+    ran = counts["pass_histograms"] > 0 and counts["onesweep_pass"] > 0
+    assert ran == (engine != "xla_sort"), counts
+    order = golden.oracle_argsort(keys)
+    np.testing.assert_array_equal(ov.cpu().numpy(), order)
+    np.testing.assert_array_equal(tdt.tensor_to_numpy(ok), keys[order])
 
 
 def test_bad_shapes_raise():
