@@ -14,7 +14,7 @@ partition's pass; ``pass_histograms`` at 2^27 for 32- and 64-bit keys;
 disjoint runs, levels 0 and 10 against the plain versions with their
 splits and against ``torch.sort`` of each pair of runs, and
 ``merge_level``'s device time and bound share at level 0 and
-the last level of 2^25 and 2^27), then runs three paths at
+the last level of 2^25 and 2^27), then runs four paths at
 BASELINE sizes through the public entry points, each with the kernels'
 launch counters set to 0 just before it and read just after:
 
@@ -63,12 +63,30 @@ launch counters set to 0 just before it and read just after:
   - ``[datasets_device]``: each distribution as u32, i64 and f32 at 2^25
     made on the card, its contract checked and its sort validated, beside
     the host generator plus the upload;
-  - ``[examples]``: the three port examples as subprocesses on the card.
+  - ``[examples]``: the three port examples as subprocesses on the card;
+
+  the dist path (radix_sort_tpu_torch.parallel, in rank processes started
+  by ``mesh.run_ranks``; their launch counts are added to this process's,
+  and every rank must launch ``pass_histograms`` and ``onesweep_pass``)
+  - ``[dist1]``: one NCCL rank on the card: ``dist_sort_kv`` of u32 keys +
+    int32 iota at 2^27 on RandomDistributed and Zeros, bit for bit
+    ``sort_kv``'s and timed beside it; BASELINE config 5 (zipf(1.3) % 4096
+    probe keys, a unique 4096-key build, scripts/baseline_configs.py) at
+    2^26 probe rows: ``dist_hash_join``, ``dist_hash_aggregate(count)``
+    and ``dist_sort_kv``, checked against numpy; ``health_check``;
+  - ``[dist4]``: four gloo ranks sharing the card (every rank's tensors on
+    cuda:0; a gloo exchange goes through host memory) at 2^22 rows a
+    rank: ``dist_sort_kv`` over the five distributions, full-range u64 and
+    the Zipf keys at G = 1 and 2 against ``np.argsort(kind="stable")``,
+    config 5 at 2^24 rows, ``dist_top_k`` with ties;
+  - ``[chunked]``: ``sort_kv(engine="chunked")`` of u32 and u64 KV at 2^27
+    on RandomDistributed and Zeros, bit for bit ``radix`` and
+    ``torch_sort`` on the same data, timed beside both.
 
 Every phase raises on a failure, so the exit code is non-zero and the last
 line is not printed.  The last line is the JSON object
 ``{"ok": true, "device": {...}}``; the line before it lists each kernel with
-its launch count on the three paths, its device time beside the plain
+its launch count summed over the four paths, its device time beside the plain
 version's (``ms``, ``plain_ms``: CUDA events around 50 back-to-back calls,
 divided by 50), its bound (``bound_ms``: the bytes it must move at 3.35
 TB/s), the time of one PyTorch call that computes the same function where
@@ -202,10 +220,16 @@ def phase_device():
     return card
 
 
+# launches counted in rank processes of the dist path, added to this
+# process's counters by launch_counts()
+CHILD_LAUNCHES: dict = {}
+
+
 def launch_counts():
     from radix_sort_tpu_torch.ops import cuda_merge, cuda_radix
 
-    return {**cuda_radix.launch_counts(), **cuda_merge.launch_counts()}
+    own = {**cuda_radix.launch_counts(), **cuda_merge.launch_counts()}
+    return {k: v + CHILD_LAUNCHES.get(k, 0) for k, v in own.items()}
 
 
 def reset_launch_counts():
@@ -213,6 +237,7 @@ def reset_launch_counts():
 
     cuda_radix.reset_launch_counts()
     cuda_merge.reset_launch_counts()
+    CHILD_LAUNCHES.clear()
 
 
 def phase_build():
@@ -1323,6 +1348,318 @@ def phase_examples(dev, rt):
               f"({os.path.getsize(png)} bytes, {s:.1f} s)", flush=True)
 
 
+# ------------------------------------------------------------ the dist path
+#
+# The rank functions run in processes that mesh.run_ranks spawns; they
+# import this file as a module (its main() runs only under __main__) and
+# send back their lines, launch counts, host reads and times.
+
+DIST1_N = 1 << 27       # dist_sort_kv at one NCCL rank
+CONFIG5_N = 1 << 26     # config 5's probe rows at one NCCL rank
+DIST4_PER_RANK = 1 << 22  # four gloo ranks sharing the card
+DIST_REPS = 3
+
+
+def config5_probe(n: int) -> np.ndarray:
+    """BASELINE config 5's probe keys (scripts/baseline_configs.py):
+    zipf(1.3) % 4096, seed 5."""
+    return (np.random.default_rng(5).zipf(1.3, n) % 4096).astype(np.uint32)
+
+
+def rank_ms(fn, mesh, reps: int = DIST_REPS) -> float:
+    """Median host-clock ms of ``fn`` over ``reps`` calls after one warm-up,
+    each started after a barrier of the mesh and ended by a synchronize;
+    the slowest rank's median (one all_reduce of max)."""
+    import torch.distributed as dist
+
+    fn()
+    times = []
+    for _ in range(reps):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    t = torch.tensor([float(np.median(times))], device=mesh.device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return float(t[0])
+
+
+def _reads():
+    from radix_sort_tpu_torch.ops import stream
+    from radix_sort_tpu_torch.parallel import exchange
+
+    return exchange.host_reads, stream.host_reads
+
+
+def _config5(mesh, pk: np.ndarray, rows_label: str, lines: list,
+             sort_checked: bool):
+    """BASELINE config 5 on this mesh: probe ``pk`` (global, every rank
+    holds it) with an iota payload, a unique 4096-key build with bv = 7k;
+    dist_hash_join, dist_hash_aggregate(count) and dist_sort_kv, checked
+    as scripts/baseline_configs.py checks them (the sort by
+    check_sorted_kv, or against np.argsort where ``sort_checked`` says the
+    caller did), then the three timed as one query."""
+    import radix_sort_tpu_torch as rt
+    from radix_sort_tpu_torch.parallel import dist_ops, dist_sort
+
+    dev = mesh.device
+    n = pk.size
+    bk = np.arange(4096, dtype=np.uint32)
+    probe = dist_ops.shard_table(rt.Table.from_numpy(
+        {"k": pk, "pv": np.arange(n, dtype=np.int32)}, device=dev), mesh)
+    build = dist_ops.shard_table(rt.Table.from_numpy(
+        {"k": bk, "bv": (bk * 7).astype(np.int32)}, device=dev), mesh)
+    ops = {
+        "join": lambda: dist_ops.dist_hash_join(probe, build, "k",
+                                                mesh=mesh),
+        "aggregate": lambda: dist_ops.dist_hash_aggregate(
+            probe, "k", {"n": ("count", None)}, mesh=mesh),
+        "sort": lambda: dist_sort.dist_sort_kv(probe["k"], probe["pv"],
+                                               mesh=mesh),
+    }
+    r0 = _reads()
+    joined, stats = ops["join"]()
+    r1 = _reads()
+    require(int(stats["match_count"]) == n and not bool(stats["overflow"]),
+            f"config5 {rows_label}: match count {int(stats['match_count'])}"
+            f" != {n}")
+    jk = joined.columns["k"][:joined.num_rows]
+    require(torch.equal(joined.columns["bv"][:joined.num_rows],
+                        (jk.view(torch.int32) * 7)),
+            f"config5 {rows_label}: bv != 7k")
+    got = dist_ops.gather_rows({"k": jk}, joined.num_rows, mesh)["k"]
+    want_counts = np.bincount(pk, minlength=4096)
+    require(np.array_equal(np.bincount(got, minlength=4096), want_counts),
+            f"config5 {rows_label}: joined keys differ")
+    agg, _ = ops["aggregate"]()
+    res = agg.to_numpy()
+    order = np.argsort(res["k"], kind="stable")
+    uk = np.nonzero(want_counts)[0].astype(np.uint32)
+    require(np.array_equal(res["k"][order], uk)
+            and np.array_equal(res["n"][order], want_counts[uk]),
+            f"config5 {rows_label}: aggregate differs from np.unique")
+    ks, vs, ovf = ops["sort"]()
+    require(not ovf, "config5: sort overflow")
+    if not sort_checked:  # one rank: its shard is the whole probe
+        require(mesh.size == 1, "config5: an unchecked sort on many ranks")
+        check_sorted_kv(rt, probe["k"], ks, vs, pk, f"config5 {rows_label} "
+                        f"sort")
+    ms = {k: rank_ms(f, mesh) for k, f in ops.items()}
+    total = rank_ms(lambda: [f() for f in ops.values()], mesh)
+    lines.append(
+        f"config 5 {rows_label}: validated (join {n} matches, bv = 7k, "
+        f"the joined keys' counts; aggregate vs np.unique counts; sort "
+        f"{'vs np.argsort above' if sort_checked else 'check_sorted_kv'}"
+        f"); join {ms['join']:.3f} ms, aggregate {ms['aggregate']:.3f} ms, "
+        f"sort {ms['sort']:.3f} ms, the three {total:.3f} ms "
+        f"({n / total / 1e3:.1f} Mrows/s); host reads of the join: "
+        f"{r1[0] - r0[0]} exchange, {r1[1] - r0[1]} sort")
+    return total
+
+
+def dist1_rank(mesh, pk_path: str):
+    """[dist1]: one NCCL rank on the card.  dist_sort_kv of u32 keys with
+    an iota payload at 2^27 (RandomDistributed, Zeros) beside sort_kv of
+    the same data, bit for bit; config 5 at 2^26 probe rows; the health
+    check."""
+    import radix_sort_tpu_torch as rt
+    from radix_sort_tpu_torch.parallel import dist_sort, runtime
+
+    lines = []
+    reset_launch_counts()
+    dev = mesh.device
+    n = DIST1_N
+    iota = torch.arange(n, dtype=torch.int32, device=dev)
+    res = {}
+    for ds in (rt.datasets.RandomDistributed(np.uint32, seed=0),
+               rt.datasets.Zeros(np.uint32)):
+        host = ds.generate(n)
+        keys = rt.dtypes.tensor_from_numpy(host, dev)
+        what = f"dist_sort_kv u32 {ds.name} 2^{n.bit_length() - 1}"
+        r0 = _reads()
+        ks, vs, ovf = dist_sort.dist_sort_kv(keys, iota, mesh=mesh)
+        torch.cuda.synchronize()
+        r1 = _reads()
+        require(not ovf, f"{what}: overflow")
+        check_sorted_kv(rt, keys, ks, vs, host, what)
+        ko, po = rt.sort_kv(keys, iota)
+        require(torch.equal(ks.view(torch.int32), ko.view(torch.int32))
+                and torch.equal(vs, po), f"{what}: differs from sort_kv")
+        ms = time_ms(lambda: dist_sort.dist_sort_kv(keys, iota, mesh=mesh),
+                     DIST_REPS)
+        ms_s = time_ms(lambda: rt.sort_kv(keys, iota), DIST_REPS)
+        res[ds.name] = (ms, ms_s)
+        lines.append(
+            f"{what}: validated (check_sorted_kv, and bit for bit sort_kv's"
+            f"); {ms:.3f} ms ({n / ms / 1e3:.1f} Mpairs/s), sort_kv "
+            f"{ms_s:.3f} ms: the dist layer adds {ms - ms_s:.3f} ms; host "
+            f"reads {r1[0] - r0[0]} exchange + {r1[1] - r0[1]} sort")
+        del keys, ks, vs, ko, po
+    del iota
+    pk = np.load(pk_path)
+    res["config5"] = _config5(
+        mesh, pk[:CONFIG5_N], f"2^{CONFIG5_N.bit_length() - 1} rows, 1 "
+        f"{mesh.backend} rank", lines, sort_checked=False)
+    status = runtime.health_check(mesh)
+    require(status["ok"] and status["heartbeat_total"] == 1,
+            f"health_check {status}")
+    lines.append(f"health_check: {status}")
+    torch.cuda.synchronize()
+    return {"lines": lines, "launches": launch_counts(), "times": res}
+
+
+def dist4_rank(mesh, pk_path: str):
+    """[dist4]: four gloo ranks whose tensors all live on cuda:0, 2^22
+    rows a rank.  dist_sort_kv over the five distributions, full-range
+    u64 and config 5's Zipf keys at G = 1 and 2, each gathered and held
+    against np.argsort(kind="stable") (case i on rank i % 4); config 5;
+    dist_top_k with ties against numpy's stable order."""
+    import radix_sort_tpu_torch as rt
+    from radix_sort_tpu_torch.parallel import dist_ops, dist_sort
+    from radix_sort_tpu_torch.parallel import mesh as mesh_lib, runtime
+
+    lines = []
+    reset_launch_counts()
+    dev = mesh.device
+    N = mesh.size * DIST4_PER_RANK
+    rng = np.random.default_rng(9)
+    cases = [(ds.name, ds.generate(N))
+             for ds in rt.datasets.make_datasets(np.uint32, 0)]
+    cases.append(("u64 full range", rng.integers(0, 2**64, N,
+                                                 dtype=np.uint64)))
+    pk = np.load(pk_path)[:N]
+    cases.append(("config 5 zipf", pk))
+    vals = mesh_lib.shard_1d(np.arange(N, dtype=np.int32), mesh)
+    times = {}
+    for i, (name, host) in enumerate(cases):
+        keys = mesh_lib.shard_1d(host, mesh)
+        perm = (np.argsort(host, kind="stable") if i % mesh.size == mesh.rank
+                else None)
+        for G in (1, 2):
+            r0 = _reads()
+            ks, vs, ovf = dist_sort.dist_sort_kv(keys, vals, mesh=mesh,
+                                                 overlap_chunks=G)
+            r1 = _reads()
+            require(not ovf, f"dist4 {name} G={G}: overflow")
+            allr = dist_ops.gather_rows({"k": ks, "v": vs}, ks.shape[0],
+                                        mesh)
+            if perm is not None:
+                require(np.array_equal(allr["v"], perm)
+                        and np.array_equal(allr["k"], host[perm]),
+                        f"dist4 {name} G={G}: differs from np.argsort")
+            ms = rank_ms(lambda: dist_sort.dist_sort_kv(
+                keys, vals, mesh=mesh, overlap_chunks=G), mesh)
+            times[(name, G)] = ms
+            lines.append(
+                f"dist_sort_kv {host.dtype.name} {name} 2^"
+                f"{N.bit_length() - 1} ({N // mesh.size} a rank) "
+                f"G={G}: validated vs np.argsort(kind='stable') on rank "
+                f"{i % mesh.size}; {ms:.3f} ms (slowest rank), "
+                f"{N / ms / 1e3:.1f} Mpairs/s; host reads a rank "
+                f"{r1[0] - r0[0]} exchange + {r1[1] - r0[1]} sort")
+    rows = f"2^{N.bit_length() - 1}"
+    times["config5"] = _config5(
+        mesh, pk, f"{rows} rows, {mesh.size} {mesh.backend} ranks on one "
+        f"card", lines, sort_checked=True)
+    ties = np.random.default_rng(29).integers(0, 8, N).astype(np.uint32)
+    t = dist_ops.shard_table(rt.Table.from_numpy(
+        {"k": ties, "row": np.arange(N, dtype=np.int32)}, device=dev), mesh)
+    want = np.argsort(-ties.astype(np.int64), kind="stable")[:1024]
+    top = dist_ops.dist_top_k(t, "k", 1024, mesh=mesh).to_numpy()
+    require(np.array_equal(top["row"], want)
+            and np.array_equal(top["k"], ties[want]),
+            "dist_top_k with ties differs from numpy's stable order")
+    ms = rank_ms(lambda: dist_ops.dist_top_k(t, "k", 1024, mesh=mesh), mesh)
+    lines.append(f"dist_top_k k=1024 of 2^{N.bit_length() - 1} keys in "
+                 f"[0, 8): validated vs "
+                 f"numpy's stable order; {ms:.3f} ms")
+    status = runtime.health_check(mesh)
+    require(status["ok"] and status["heartbeat_total"] == mesh.size,
+            f"health_check {status}")
+    lines.append(f"health_check: {status}")
+    torch.cuda.synchronize()
+    return {"lines": lines, "launches": launch_counts(), "times": times}
+
+
+def phase_dist(dev, rt):
+    """[dist1] and [dist4] in rank processes (mesh.run_ranks); their lines
+    printed here, their launches added to this process's counters, and
+    every rank required to have launched pass_histograms and
+    onesweep_pass."""
+    from radix_sort_tpu_torch.parallel import mesh as mesh_lib
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the ranks allocate on the same card
+    with tempfile.TemporaryDirectory() as d:
+        pk_path = os.path.join(d, "config5_probe.npy")
+        t0 = time.perf_counter()
+        np.save(pk_path, config5_probe(CONFIG5_N))
+        print(f"[dist] config 5 probe keys, zipf(1.3) % 4096 at "
+              f"2^{CONFIG5_N.bit_length() - 1}, made in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        out = {}
+        for tag, fn, ranks, backend, device in (
+                ("dist1", dist1_rank, 1, "nccl", "cuda"),
+                ("dist4", dist4_rank, 4, "gloo", "cuda:0")):
+            t0 = time.perf_counter()
+            res = mesh_lib.run_ranks(fn, ranks, backend=backend,
+                                     device=device, args=(pk_path,),
+                                     timeout_s=600)
+            for r, rr in enumerate(res):
+                for k in ("pass_histograms", "onesweep_pass"):
+                    require(rr["launches"][k] > 0,
+                            f"{tag} rank {r}: {k} never launched")
+                for k, v in rr["launches"].items():
+                    CHILD_LAUNCHES[k] = CHILD_LAUNCHES.get(k, 0) + v
+            for line in res[0]["lines"]:
+                print(f"[{tag}] {line}", flush=True)
+            print(f"[{tag}] {ranks} {backend} rank(s) on {device}: "
+                  f"{time.perf_counter() - t0:.1f} s from spawn to exit; "
+                  f"launches by rank "
+                  f"{[rr['launches'] for rr in res]}", flush=True)
+            out[tag] = res[0]["times"]
+    return out
+
+
+def phase_chunked(dev, rt):
+    """sort_kv(engine="chunked") of u32 and u64 KV at 2^27 on
+    RandomDistributed and Zeros, bit for bit the radix and torch.sort
+    results of the same data (torch.sort(stable=True) is the oracle on the
+    card), each timed beside both."""
+    from radix_sort_tpu_torch.ops import stream
+
+    n = 1 << 27
+    iota = torch.arange(n, dtype=torch.int32, device=dev)
+    c = rt.dtypes.as_container
+    for dtype in (np.uint32, np.uint64):
+        for ds in (rt.datasets.RandomDistributed(dtype, seed=0),
+                   rt.datasets.Zeros(dtype)):
+            keys = rt.dtypes.tensor_from_numpy(ds.generate(n), dev)
+            what = (f"sort_kv {np.dtype(dtype).name} {ds.name} "
+                    f"2^{n.bit_length() - 1}")
+            before, reads = launch_counts(), stream.host_reads
+            ko, po = rt.sort_kv(keys, iota, engine="chunked")
+            torch.cuda.synchronize()
+            delta = {k: v - before[k] for k, v in launch_counts().items()
+                     if v - before[k]}
+            reads = stream.host_reads - reads
+            for engine in ("radix", "torch_sort"):
+                k2, p2 = rt.sort_kv(keys, iota, engine=engine)
+                require(torch.equal(c(ko), c(k2)) and torch.equal(po, p2),
+                        f"{what}: chunked differs from {engine}")
+            del k2, p2
+            ms = {e: time_ms(lambda: rt.sort_kv(keys, iota, engine=e))
+                  for e in ("chunked", "radix", "torch_sort")}
+            print(f"[chunked] {what} engine=chunked: bit for bit radix's "
+                  f"and torch.sort's; chunked {ms['chunked']:.3f} ms "
+                  f"({n / ms['chunked'] / 1e3:.1f} Mpairs/s), radix "
+                  f"{ms['radix']:.3f} ms, torch.sort {ms['torch_sort']:.3f} "
+                  f"ms; launches {delta}, host reads {reads}", flush=True)
+            del keys, ko, po
+
+
 def run_path(name, phases, kernels):
     """Drive one path with every launch counter at 0 before it; require
     each of ``kernels`` to have launched in it.  Returns the counts."""
@@ -1368,9 +1705,13 @@ def main() -> int:
                                lambda: phase_datasets_device(dev, rt),
                                lambda: phase_examples(dev, rt)),
                      radix_kernels)
-    launches = {k: radix[k] + merge[k] + query[k] for k in REPLACES}
+    # the ranks' launches are in the counts (CHILD_LAUNCHES); phase_dist
+    # requires both kernels on every rank
+    dist = run_path("dist", (lambda: phase_dist(dev, rt),
+                             lambda: phase_chunked(dev, rt)), radix_kernels)
+    launches = {k: radix[k] + merge[k] + query[k] + dist[k] for k in REPLACES}
     peak = torch.cuda.max_memory_allocated()
-    print(f"[summary] launches on the three paths {launches}; "
+    print(f"[summary] launches on the four paths {launches}; "
           f"max_memory_allocated {peak / 2**30:.2f} GiB; card {card}",
           flush=True)
 

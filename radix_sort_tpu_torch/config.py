@@ -31,9 +31,9 @@ class SortConfig:
     - ``threads_per_cta`` — threads per CTA.
     - ``max_input_elems`` — the harness's size guard (the reference's
       ``_NUM_MAX_INPUT_ELEMS``), as in the JAX package.
-    - ``engine``          — "auto" (= "radix"), "radix", "merge" or
-      "torch_sort", or a JAX engine name mapped onto them; see
-      ops/sort.py.
+    - ``engine``          — "auto" (= "radix"), "radix", "merge",
+      "torch_sort" or "chunked", or a JAX engine name mapped onto them;
+      see ops/sort.py.
     """
 
     bits_per_pass: int = 8

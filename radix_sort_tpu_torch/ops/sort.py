@@ -23,8 +23,10 @@ The JAX package's engine names are accepted too (``JAX_ENGINES``):
 stable LSD radix sort, so they run ``radix`` (the kernels on a CUDA
 tensor); ``xla_sort`` is the platform's library sort, so it runs
 ``torch_sort``, chosen by that name and never as a fallback;
-``pallas_merge`` runs ``merge``.  ``chunked`` is not ported yet and
-raises.
+``pallas_merge`` runs ``merge``.  ``chunked`` (the same name in both
+packages) is the range-chunked sort of ops/chunked_sort.py: one partition
+pass into value ranges, then a radix sort of each; only a caller who names
+it gets it, as in the JAX package, where ``auto`` never picks it.
 """
 
 from __future__ import annotations
@@ -38,14 +40,13 @@ from torch.utils import _pytree as pytree
 from .. import dtypes
 from ..config import DEFAULT_CONFIG, SortConfig
 from ..status import EngineError, OperationStatus
-from . import cuda_merge, cuda_radix
+from . import chunked_sort, cuda_merge, cuda_radix
 
-ENGINES = ("auto", "radix", "merge", "torch_sort")
+ENGINES = ("auto", "radix", "merge", "torch_sort", "chunked")
 # JAX engine name -> the port's engine that does the same work
 JAX_ENGINES = {"pallas": "radix", "pallas_stream": "radix",
                "xla_radix": "radix", "xla_sort": "torch_sort",
-               "pallas_merge": "merge"}
-NOT_YET_PORTED = ("chunked",)
+               "pallas_merge": "merge", "chunked": "chunked"}
 
 
 def _dispatch_engine(engine: str) -> str:
@@ -54,9 +55,6 @@ def _dispatch_engine(engine: str) -> str:
         return "radix"
     if engine in ENGINES:
         return engine
-    if engine in NOT_YET_PORTED:
-        raise EngineError(OperationStatus.INITIALIZATION_FAILED,
-                          f"engine {engine!r} is not yet ported")
     raise EngineError(OperationStatus.INITIALIZATION_FAILED,
                       f"unknown engine {engine!r}")
 
@@ -82,6 +80,9 @@ def sort_biased_kv(keys_bits: torch.Tensor, payloads,
         return cuda_merge.merge_sort_bits(keys_bits), ()
     if engine in ("radix", "merge"):
         return cuda_radix.sort_biased(keys_bits, payloads, config, total_bits)
+    if engine == "chunked":
+        return chunked_sort.sort_chunked_biased(
+            keys_bits, payloads, total_bits=total_bits, config=config)
     return _torch_sort_engine(keys_bits, payloads)
 
 

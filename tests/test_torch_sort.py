@@ -118,7 +118,7 @@ def test_tuple_payload_and_engines_agree():
     assert torch.equal(c_a, r_a)
 
 
-@pytest.mark.parametrize("engine", ["chunked", "no_such_engine"])
+@pytest.mark.parametrize("engine", ["no_such_engine"])
 def test_unported_engines_raise(engine):
     with pytest.raises(rtt.EngineError):
         rtt.sort(torch.arange(5, dtype=torch.int32), engine=engine)
