@@ -14,7 +14,7 @@ partition's pass; ``pass_histograms`` at 2^27 for 32- and 64-bit keys;
 disjoint runs, levels 0 and 10 against the plain versions with their
 splits and against ``torch.sort`` of each pair of runs, and
 ``merge_level``'s device time and bound share at level 0 and
-the last level of 2^25 and 2^27), then runs four paths at
+the last level of 2^25 and 2^27), then runs five paths at
 BASELINE sizes through the public entry points, each with the kernels'
 launch counters set to 0 just before it and read just after:
 
@@ -28,7 +28,8 @@ launch counters set to 0 just before it and read just after:
   - config 3: ``filter_expr(k < 500)`` → ``hash_aggregate(count, sum)`` over
     2^26 rows, checked against ``np.bincount``;
   - config 4: ``hash_join`` of a 2^20-row probe against a 2^18-row unique
-    build, checked against numpy;
+    build, checked against numpy (configs 3, 4 and 5 as
+    scripts/torch_baseline_configs.py runs and checks them);
 
   the merge path
   - ``sort(engine="merge")``: u32 key-only at 2^25 over the five
@@ -71,9 +72,10 @@ launch counters set to 0 just before it and read just after:
   - ``[dist1]``: one NCCL rank on the card: ``dist_sort_kv`` of u32 keys +
     int32 iota at 2^27 on RandomDistributed and Zeros, bit for bit
     ``sort_kv``'s and timed beside it; BASELINE config 5 (zipf(1.3) % 4096
-    probe keys, a unique 4096-key build, scripts/baseline_configs.py) at
-    2^26 probe rows: ``dist_hash_join``, ``dist_hash_aggregate(count)``
-    and ``dist_sort_kv``, checked against numpy; ``health_check``;
+    probe keys, a unique 4096-key build) at 2^26 probe rows, as
+    scripts/torch_baseline_configs.py runs it: ``dist_hash_join``,
+    ``dist_hash_aggregate(count)`` and ``dist_sort_kv``, checked against
+    numpy; ``health_check``;
   - ``[dist4]``: four gloo ranks sharing the card (every rank's tensors on
     cuda:0; a gloo exchange goes through host memory) at 2^22 rows a
     rank: ``dist_sort_kv`` over the five distributions, full-range u64 and
@@ -81,12 +83,26 @@ launch counters set to 0 just before it and read just after:
     config 5 at 2^24 rows, ``dist_top_k`` with ties;
   - ``[chunked]``: ``sort_kv(engine="chunked")`` of u32 and u64 KV at 2^27
     on RandomDistributed and Zeros, bit for bit ``radix`` and
-    ``torch_sort`` on the same data, timed beside both.
+    ``torch_sort`` on the same data, timed beside both;
+
+  the bench path (the port's measurement entry points, through their
+  functions; every one of the seven kernels must launch on it)
+  - ``[headline]``: bench_torch.py at 2^25 under ``auto`` (radix) and
+    ``merge``, each JSON line printed;
+  - scripts/torch_benchmark.py over 2^25, 2^20, 2^15 and 2^10, u32 and u64,
+    the five distributions, with the phase columns (``digit_histogram``,
+    ``exclusive_scan``, ``rank_scatter``) and the CPU baselines below 2^25,
+    every row valid, the CSVs written to chiprun_out/;
+  - scripts/torch_baseline_configs.py configs 1 and 2 (u32 and u64 KV at
+    2^27), written to chiprun_out/baseline_results_torch.json;
+  - ``[scaling]``: scripts/torch_scaling_bench.py with ``--check-ops`` at
+    2^22 rows a rank, one NCCL rank, then two and four gloo ranks sharing
+    the card.
 
 Every phase raises on a failure, so the exit code is non-zero and the last
 line is not printed.  The last line is the JSON object
 ``{"ok": true, "device": {...}}``; the line before it lists each kernel with
-its launch count summed over the four paths, its device time beside the plain
+its launch count summed over the five paths, its device time beside the plain
 version's (``ms``, ``plain_ms``: CUDA events around 50 back-to-back calls,
 divided by 50), its bound (``bound_ms``: the bytes it must move at 3.35
 TB/s), the time of one PyTorch call that computes the same function where
@@ -238,6 +254,20 @@ def reset_launch_counts():
     cuda_radix.reset_launch_counts()
     cuda_merge.reset_launch_counts()
     CHILD_LAUNCHES.clear()
+
+
+def script(name: str):
+    """A module of the port's entry points (``bench_torch`` at the root,
+    ``torch_*`` in ``scripts/``), imported by name with both directories
+    on the path, so the rank processes that run_ranks spawns (which start
+    from this process's path) import it too."""
+    import importlib
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    for d in (here, os.path.join(here, "scripts")):
+        if d not in sys.path:
+            sys.path.insert(0, d)
+    return importlib.import_module(name)
 
 
 def phase_build():
@@ -734,66 +764,29 @@ def phase_merge_profile(dev, rt):
 
 
 def phase_config3(dev, rt):
-    from radix_sort_tpu_torch.ops import aggregate, filter as filt
-
-    n = 1 << 26
-    rng = np.random.default_rng(3)
-    keys = rng.integers(0, 1000, n).astype(np.uint32)
-    vals = rng.integers(0, 100, n).astype(np.int32)
-    t = rt.Table.from_numpy({"k": keys, "x": vals}, device=dev)
-
-    def query(config=rt.DEFAULT_CONFIG):
-        f = filt.filter_expr(t, "k", "lt", 500, config=config)
-        return aggregate.hash_aggregate(
-            f, "k", {"n": ("count", None), "s": ("sum", "x")}, config=config)
-
-    out = query().to_numpy()
-    mask = keys < 500
-    exp_n = np.bincount(keys[mask], minlength=500)
-    exp_s = np.bincount(keys[mask], weights=vals[mask], minlength=500)
-    require(np.array_equal(out["k"], np.arange(500, dtype=np.uint32)),
-            "config3: group keys differ")
-    require(np.array_equal(out["n"], exp_n), "config3: counts differ")
-    require(np.array_equal(out["s"], exp_s.astype(np.int32)),
-            "config3: sums differ")
-    torch_cfg = rt.SortConfig(engine="torch_sort")
-    ms, ms_t = time_ms(query), time_ms(lambda: query(torch_cfg))
+    """BASELINE config 3 at 2^26 rows, as scripts/torch_baseline_configs.py
+    runs and checks it: filter(k < 500) -> hash_aggregate(count, sum)
+    against np.bincount, beside its sorts on torch.sort."""
+    (name, r), = script("torch_baseline_configs").config3(dev, 26)
+    require(r["valid"], f"{name}: differs from np.bincount")
     print(f"[config3] filter(k<500) -> aggregate(count,sum) 2^26 rows: "
-          f"validated vs np.bincount; {ms:.3f} ms ({n / ms / 1e3:.1f} "
-          f"Mrows/s); with torch.sort inside {ms_t:.3f} ms "
-          f"({n / ms_t / 1e3:.1f} Mrows/s)", flush=True)
-    return ms, ms_t
+          f"validated vs np.bincount; {r['ms']:.3f} ms ({r['mrows_per_s']} "
+          f"Mrows/s); with torch.sort inside {r['torch_sort_ms']:.3f} ms "
+          f"({r['torch_sort_mrows_per_s']} Mrows/s)", flush=True)
+    return r["ms"], r["torch_sort_ms"]
 
 
 def phase_config4(dev, rt):
-    from radix_sort_tpu_torch.ops import join
-
-    n_probe, n_build = 1 << 20, 1 << 18
-    rng = np.random.default_rng(4)
-    pk = rng.integers(0, n_probe >> 1, n_probe).astype(np.uint32)
-    bk = rng.permutation(n_probe >> 1)[:n_build].astype(np.uint32)
-    probe = rt.Table.from_numpy(
-        {"k": pk, "pv": np.arange(n_probe, dtype=np.int32)}, device=dev)
-    build = rt.Table.from_numpy(
-        {"k": bk, "bv": (bk * 3).astype(np.int32)}, device=dev)
-
-    def query(config=rt.DEFAULT_CONFIG):
-        return join.hash_join(probe, build, "k", config=config)
-
-    res, stats = query()
-    cnt = int(stats["match_count"])
-    out = res.to_numpy()
-    require(cnt == int(np.isin(pk, bk).sum()), "config4: match count differs")
-    require(not bool(stats["overflow"]), "config4: overflow")
-    require(np.array_equal(out["bv"], (out["k"] * 3).astype(np.int32)),
-            "config4: bv != 3k")
-    torch_cfg = rt.SortConfig(engine="torch_sort")
-    ms, ms_t = time_ms(query), time_ms(lambda: query(torch_cfg))
+    """BASELINE config 4 with a 2^20-row probe and a 2^18-row unique
+    build, as scripts/torch_baseline_configs.py runs and checks it, beside
+    its sorts on torch.sort."""
+    (name, r), = script("torch_baseline_configs").config4(dev, 20)
+    require(r["valid"], f"{name}: differs from numpy")
     print(f"[config4] hash_join 2^20 probe x 2^18 build: validated "
-          f"({cnt} matches); {ms:.3f} ms ({n_probe / ms / 1e3:.1f} "
-          f"Mrows/s); with torch.sort inside {ms_t:.3f} ms "
-          f"({n_probe / ms_t / 1e3:.1f} Mrows/s)", flush=True)
-    return ms, ms_t
+          f"({r['matches']} matches); {r['ms']:.3f} ms ({r['mrows_per_s']} "
+          f"Mrows/s); with torch.sort inside {r['torch_sort_ms']:.3f} ms "
+          f"({r['torch_sort_mrows_per_s']} Mrows/s)", flush=True)
+    return r["ms"], r["torch_sort_ms"]
 
 
 def phase_merge(dev, rt):
@@ -1360,32 +1353,6 @@ DIST4_PER_RANK = 1 << 22  # four gloo ranks sharing the card
 DIST_REPS = 3
 
 
-def config5_probe(n: int) -> np.ndarray:
-    """BASELINE config 5's probe keys (scripts/baseline_configs.py):
-    zipf(1.3) % 4096, seed 5."""
-    return (np.random.default_rng(5).zipf(1.3, n) % 4096).astype(np.uint32)
-
-
-def rank_ms(fn, mesh, reps: int = DIST_REPS) -> float:
-    """Median host-clock ms of ``fn`` over ``reps`` calls after one warm-up,
-    each started after a barrier of the mesh and ended by a synchronize;
-    the slowest rank's median (one all_reduce of max)."""
-    import torch.distributed as dist
-
-    fn()
-    times = []
-    for _ in range(reps):
-        dist.barrier()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    t = torch.tensor([float(np.median(times))], device=mesh.device)
-    dist.all_reduce(t, op=dist.ReduceOp.MAX)
-    return float(t[0])
-
-
 def _reads():
     from radix_sort_tpu_torch.ops import stream
     from radix_sort_tpu_torch.parallel import exchange
@@ -1393,70 +1360,26 @@ def _reads():
     return exchange.host_reads, stream.host_reads
 
 
-def _config5(mesh, pk: np.ndarray, rows_label: str, lines: list,
-             sort_checked: bool):
-    """BASELINE config 5 on this mesh: probe ``pk`` (global, every rank
-    holds it) with an iota payload, a unique 4096-key build with bv = 7k;
-    dist_hash_join, dist_hash_aggregate(count) and dist_sort_kv, checked
-    as scripts/baseline_configs.py checks them (the sort by
-    check_sorted_kv, or against np.argsort where ``sort_checked`` says the
-    caller did), then the three timed as one query."""
-    import radix_sort_tpu_torch as rt
-    from radix_sort_tpu_torch.parallel import dist_ops, dist_sort
-
-    dev = mesh.device
-    n = pk.size
-    bk = np.arange(4096, dtype=np.uint32)
-    probe = dist_ops.shard_table(rt.Table.from_numpy(
-        {"k": pk, "pv": np.arange(n, dtype=np.int32)}, device=dev), mesh)
-    build = dist_ops.shard_table(rt.Table.from_numpy(
-        {"k": bk, "bv": (bk * 7).astype(np.int32)}, device=dev), mesh)
-    ops = {
-        "join": lambda: dist_ops.dist_hash_join(probe, build, "k",
-                                                mesh=mesh),
-        "aggregate": lambda: dist_ops.dist_hash_aggregate(
-            probe, "k", {"n": ("count", None)}, mesh=mesh),
-        "sort": lambda: dist_sort.dist_sort_kv(probe["k"], probe["pv"],
-                                               mesh=mesh),
-    }
-    r0 = _reads()
-    joined, stats = ops["join"]()
-    r1 = _reads()
-    require(int(stats["match_count"]) == n and not bool(stats["overflow"]),
-            f"config5 {rows_label}: match count {int(stats['match_count'])}"
-            f" != {n}")
-    jk = joined.columns["k"][:joined.num_rows]
-    require(torch.equal(joined.columns["bv"][:joined.num_rows],
-                        (jk.view(torch.int32) * 7)),
-            f"config5 {rows_label}: bv != 7k")
-    got = dist_ops.gather_rows({"k": jk}, joined.num_rows, mesh)["k"]
-    want_counts = np.bincount(pk, minlength=4096)
-    require(np.array_equal(np.bincount(got, minlength=4096), want_counts),
-            f"config5 {rows_label}: joined keys differ")
-    agg, _ = ops["aggregate"]()
-    res = agg.to_numpy()
-    order = np.argsort(res["k"], kind="stable")
-    uk = np.nonzero(want_counts)[0].astype(np.uint32)
-    require(np.array_equal(res["k"][order], uk)
-            and np.array_equal(res["n"][order], want_counts[uk]),
-            f"config5 {rows_label}: aggregate differs from np.unique")
-    ks, vs, ovf = ops["sort"]()
-    require(not ovf, "config5: sort overflow")
-    if not sort_checked:  # one rank: its shard is the whole probe
-        require(mesh.size == 1, "config5: an unchecked sort on many ranks")
-        check_sorted_kv(rt, probe["k"], ks, vs, pk, f"config5 {rows_label} "
-                        f"sort")
-    ms = {k: rank_ms(f, mesh) for k, f in ops.items()}
-    total = rank_ms(lambda: [f() for f in ops.values()], mesh)
+def _config5(mesh, pk: np.ndarray, rows_label: str, lines: list):
+    """BASELINE config 5 on this mesh, as
+    scripts/torch_baseline_configs.py runs and checks it (``config5_query``:
+    join, count aggregate and KV sort of the probe ``pk``, which every rank
+    holds); its checks required and its line added to ``lines``.  Returns
+    the three operators' ms as one query."""
+    r = script("torch_baseline_configs").config5_query(mesh, pk)
+    for k in ("join_valid", "agg_valid", "sort_valid"):
+        require(r[k], f"config5 {rows_label}: {k} is false")
+    ms, three = r["ms"], r["three_ms"]
     lines.append(
-        f"config 5 {rows_label}: validated (join {n} matches, bv = 7k, "
-        f"the joined keys' counts; aggregate vs np.unique counts; sort "
-        f"{'vs np.argsort above' if sort_checked else 'check_sorted_kv'}"
-        f"); join {ms['join']:.3f} ms, aggregate {ms['aggregate']:.3f} ms, "
-        f"sort {ms['sort']:.3f} ms, the three {total:.3f} ms "
-        f"({n / total / 1e3:.1f} Mrows/s); host reads of the join: "
-        f"{r1[0] - r0[0]} exchange, {r1[1] - r0[1]} sort")
-    return total
+        f"config 5 {rows_label}: validated (join {r['matches']} matches, bv "
+        f"= 7k, the joined keys' counts; aggregate vs np.unique counts; sort "
+        f"the stable sort of the gathered rows); join {ms['join']:.3f} ms, "
+        f"aggregate {ms['aggregate']:.3f} ms, sort {ms['sort']:.3f} ms, the "
+        f"three {three:.3f} ms ({pk.size / three / 1e3:.1f} Mrows/s), with "
+        f"torch.sort inside {r['torch_sort_three_ms']:.3f} ms; host reads of "
+        f"the join: {r['join_host_reads'][0]} exchange, "
+        f"{r['join_host_reads'][1]} sort")
+    return three
 
 
 def dist1_rank(mesh, pk_path: str):
@@ -1501,7 +1424,7 @@ def dist1_rank(mesh, pk_path: str):
     pk = np.load(pk_path)
     res["config5"] = _config5(
         mesh, pk[:CONFIG5_N], f"2^{CONFIG5_N.bit_length() - 1} rows, 1 "
-        f"{mesh.backend} rank", lines, sort_checked=False)
+        f"{mesh.backend} rank", lines)
     status = runtime.health_check(mesh)
     require(status["ok"] and status["heartbeat_total"] == 1,
             f"health_check {status}")
@@ -1519,6 +1442,7 @@ def dist4_rank(mesh, pk_path: str):
     import radix_sort_tpu_torch as rt
     from radix_sort_tpu_torch.parallel import dist_ops, dist_sort
     from radix_sort_tpu_torch.parallel import mesh as mesh_lib, runtime
+    from radix_sort_tpu_torch.utils import profiling
 
     lines = []
     reset_launch_counts()
@@ -1549,8 +1473,8 @@ def dist4_rank(mesh, pk_path: str):
                 require(np.array_equal(allr["v"], perm)
                         and np.array_equal(allr["k"], host[perm]),
                         f"dist4 {name} G={G}: differs from np.argsort")
-            ms = rank_ms(lambda: dist_sort.dist_sort_kv(
-                keys, vals, mesh=mesh, overlap_chunks=G), mesh)
+            ms = profiling.rank_ms(lambda: dist_sort.dist_sort_kv(
+                keys, vals, mesh=mesh, overlap_chunks=G), mesh, DIST_REPS)
             times[(name, G)] = ms
             lines.append(
                 f"dist_sort_kv {host.dtype.name} {name} 2^"
@@ -1562,7 +1486,7 @@ def dist4_rank(mesh, pk_path: str):
     rows = f"2^{N.bit_length() - 1}"
     times["config5"] = _config5(
         mesh, pk, f"{rows} rows, {mesh.size} {mesh.backend} ranks on one "
-        f"card", lines, sort_checked=True)
+        f"card", lines)
     ties = np.random.default_rng(29).integers(0, 8, N).astype(np.uint32)
     t = dist_ops.shard_table(rt.Table.from_numpy(
         {"k": ties, "row": np.arange(N, dtype=np.int32)}, device=dev), mesh)
@@ -1571,7 +1495,9 @@ def dist4_rank(mesh, pk_path: str):
     require(np.array_equal(top["row"], want)
             and np.array_equal(top["k"], ties[want]),
             "dist_top_k with ties differs from numpy's stable order")
-    ms = rank_ms(lambda: dist_ops.dist_top_k(t, "k", 1024, mesh=mesh), mesh)
+    ms = profiling.rank_ms(lambda: dist_ops.dist_top_k(t, "k", 1024,
+                                                       mesh=mesh), mesh,
+                           DIST_REPS)
     lines.append(f"dist_top_k k=1024 of 2^{N.bit_length() - 1} keys in "
                  f"[0, 8): validated vs "
                  f"numpy's stable order; {ms:.3f} ms")
@@ -1595,7 +1521,8 @@ def phase_dist(dev, rt):
     with tempfile.TemporaryDirectory() as d:
         pk_path = os.path.join(d, "config5_probe.npy")
         t0 = time.perf_counter()
-        np.save(pk_path, config5_probe(CONFIG5_N))
+        np.save(pk_path, script("torch_baseline_configs").config5_probe(
+            CONFIG5_N))
         print(f"[dist] config 5 probe keys, zipf(1.3) % 4096 at "
               f"2^{CONFIG5_N.bit_length() - 1}, made in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -1660,6 +1587,73 @@ def phase_chunked(dev, rt):
             del keys, ko, po
 
 
+# ----------------------------------------------------------- the bench path
+#
+# The port's measurement entry points run on the card through their own
+# functions, every result validated by the programs' own checks.
+
+SCALING_ROWS = 1 << 22  # rows a rank of the scaling bench
+
+
+def phase_headline(dev, rt):
+    """bench_torch.py at 2^25 under radix (engine auto) and merge: each
+    JSON line printed after ``[headline]`` (its validation raises)."""
+    bench = script("bench_torch")
+    out = {}
+    for engine in ("auto", "merge"):
+        rec = bench.run(25, engine, str(dev))
+        print(f"[headline] {json.dumps(rec)}", flush=True)
+        out[engine] = rec
+    return out
+
+
+def phase_sweep(dev, rt):
+    """scripts/torch_benchmark.py over n = 2^25, 2^20, 2^15, 2^10, u32 and
+    u64, the five distributions, with the phase columns and the CPU
+    baselines below 2^25; every row valid, the CSVs in chiprun_out/."""
+    sweep = script("torch_benchmark")
+    common = ["--datatypes", "u32,u64", "--device", str(dev), "--perf-to-csv"]
+    rows = []
+    for argv in (["--min-log2", "25", "--max-log2", "25",
+                  "--no-cpu-baselines"],
+                 ["--min-log2", "10", "--max-log2", "20", "--step", "5"]):
+        rows += sweep.sweep(sweep.build_parser().parse_args(argv + common))
+    require(len(rows) == 40 and all(r.valid for r in rows),
+            f"sweep: {len(rows)} rows, valid {[r.valid for r in rows]}")
+
+
+def phase_configs12(dev, rt):
+    """scripts/torch_baseline_configs.py configs 1 and 2 (u32 and u64 KV
+    at 2^27 over Zeros, Random, Range and InvertedRange), written to
+    chiprun_out/baseline_results_torch.json; every record valid."""
+    tbc = script("torch_baseline_configs")
+    recs = tbc.run_configs(tbc.build_parser().parse_args(
+        ["1", "2", "--cfg2-log2n", "27", "--device", str(dev)]))
+    bad = [k for k, r in recs.items() if not r["valid"]]
+    require(len(recs) == 9 and not bad,
+            f"configs 1-2: {len(recs)} records, not valid: {bad}")
+
+
+def phase_scaling(dev, rt):
+    """scripts/torch_scaling_bench.py with --check-ops at 2^22 rows a
+    rank: one NCCL rank, then 2 and 4 gloo ranks sharing the card; every
+    record valid, every rank's launches added to this process's."""
+    bench = script("torch_scaling_bench")
+    for sizes, backend in (([1], "nccl"), ([2, 4], "gloo")):
+        recs, launches = bench.scaling(sizes, SCALING_ROWS, True, backend,
+                                       str(dev))
+        for r in recs:
+            require(r["valid"] and r["agg_valid"] and r["join_valid"],
+                    f"scaling {r}: not valid")
+            print(f"[scaling] {json.dumps(r)}", flush=True)
+        for rank, counts in enumerate(launches):
+            for k in ("pass_histograms", "onesweep_pass"):
+                require(counts[k] > 0, f"scaling {backend} rank {rank}: {k} "
+                                       f"never launched")
+            for k, v in counts.items():
+                CHILD_LAUNCHES[k] = CHILD_LAUNCHES.get(k, 0) + v
+
+
 def run_path(name, phases, kernels):
     """Drive one path with every launch counter at 0 before it; require
     each of ``kernels`` to have launched in it.  Returns the counts."""
@@ -1709,9 +1703,18 @@ def main() -> int:
     # requires both kernels on every rank
     dist = run_path("dist", (lambda: phase_dist(dev, rt),
                              lambda: phase_chunked(dev, rt)), radix_kernels)
-    launches = {k: radix[k] + merge[k] + query[k] + dist[k] for k in REPLACES}
+    # the entry points: the headline under auto launches the radix pair,
+    # under merge tile_sort and merge_level; the sweep's phase columns the
+    # three-launch pass
+    bench = run_path("bench", (lambda: phase_headline(dev, rt),
+                               lambda: phase_sweep(dev, rt),
+                               lambda: phase_configs12(dev, rt),
+                               lambda: phase_scaling(dev, rt)),
+                     tuple(REPLACES))
+    launches = {k: radix[k] + merge[k] + query[k] + dist[k] + bench[k]
+                for k in REPLACES}
     peak = torch.cuda.max_memory_allocated()
-    print(f"[summary] launches on the four paths {launches}; "
+    print(f"[summary] launches on the five paths {launches}; "
           f"max_memory_allocated {peak / 2**30:.2f} GiB; card {card}",
           flush=True)
 

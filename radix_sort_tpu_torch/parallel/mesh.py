@@ -51,13 +51,16 @@ class Mesh:
 
 
 def _default_device(backend: str, rank: int) -> torch.device:
-    """Card ``rank`` on NCCL; on gloo the card every rank shares (cuda:0),
-    or the CPU where the machine has no card."""
+    """Card ``rank`` on NCCL; on gloo the card every rank shares (cuda:0).
+    Raises where the process sees no card: a CPU mesh is asked for by
+    name (``device="cpu"``), never chosen for a caller."""
+    if not torch.cuda.is_available():
+        raise ValueError(f"no CUDA card is visible to rank {rank} of the "
+                         f"{backend} group: pass device='cpu' for a CPU "
+                         f"mesh")
     if backend == "nccl":
-        return torch.device("cuda", rank % max(1, torch.cuda.device_count()))
-    if torch.cuda.is_available():
-        return torch.device("cuda", 0)
-    return torch.device("cpu")
+        return torch.device("cuda", rank % torch.cuda.device_count())
+    return torch.device("cuda", 0)
 
 
 def _check_device(dev: torch.device, backend: str) -> None:
@@ -75,9 +78,11 @@ def make_mesh(num_devices: int | None = None, *, backend: str | None = None,
     world of one rank: on ``device`` (the card unless the caller asks for
     the CPU), over NCCL on a card and gloo on the CPU.  ``num_devices`` and
     ``backend``, where given, must match the group, and a NCCL group takes
-    CUDA devices only; a mismatch raises ValueError.  A group started here
-    stays the process's default group, so a later call on another device
-    must suit its backend."""
+    CUDA devices only; a mismatch raises ValueError.  In a running group
+    the mesh is on ``device``, else on card ``rank`` (NCCL) or on cuda:0
+    (gloo); with no device named and no card visible it raises
+    ValueError.  A group started here stays the process's default group,
+    so a later call on another device must suit its backend."""
     if not dist.is_initialized():
         if num_devices not in (None, 1):
             raise ValueError(

@@ -46,21 +46,27 @@ class RuntimeInfo:
 
 def initialize(coordinator_address: str | None = None,
                num_processes: int | None = None,
-               process_id: int | None = None) -> RuntimeInfo:
+               process_id: int | None = None, *,
+               backend: str = "nccl") -> RuntimeInfo:
     """Join (or, in a single process, skip) the process group.
 
     Several processes are meant when an argument is given or ``torchrun``'s
     environment names a world of more than one (MASTER_ADDR, MASTER_PORT,
     WORLD_SIZE, RANK).  The group joins over ``coordinator_address``
-    ("host:port", TCP) or the environment, with NCCL where the process sees
-    a card and gloo where it does not.  One rank a process:
-    ``global_devices`` counts ranks.  Safe to call in a single process:
-    it then starts nothing and describes the process."""
+    ("host:port", TCP) or the environment, on ``backend``: NCCL, a card a
+    process, unless the caller asks for "gloo" (CPU ranks, or ranks that
+    share a card), as ``make_mesh(backend=...)``.  A NCCL group in a
+    process that sees no card raises ValueError before it joins.  One rank
+    a process: ``global_devices`` counts ranks.  Safe to call in a single
+    process: it then starts nothing and describes the process."""
     multi = (coordinator_address is not None
              or num_processes not in (None, 1)
              or _env_launch())
     if multi and not dist.is_initialized():
-        backend = "nccl" if torch.cuda.is_available() else "gloo"
+        if backend == "nccl" and not torch.cuda.is_available():
+            raise ValueError("a NCCL group needs a CUDA card and this "
+                             "process sees none: pass backend='gloo' for "
+                             "CPU ranks")
         init = ("env://" if coordinator_address is None
                 else f"tcp://{coordinator_address}")
         kw = {}

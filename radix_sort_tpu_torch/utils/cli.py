@@ -5,13 +5,16 @@ Port of ``radix_sort_tpu/utils/cli.py``: the reference's flags
 ``--perf-csv-to-stdout`` and ``-v/--verbose`` on argparse, plus the JAX
 package's additions (engine, dtype/dataset filters, bits per pass,
 iterations, CSV directory) with the same defaults.  ``--engine`` offers the
-port's engines.
+port's engines.  :func:`resolve_device` reads the ``--device`` of the
+port's entry points (``bench_torch.py``, ``scripts/torch_*.py``).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+
+import torch
 
 ENGINE_CHOICES = ("auto", "radix", "merge", "torch_sort")
 
@@ -66,3 +69,18 @@ def parse_options(argv=None) -> RadixSortOptions:
         iterations=a.iterations,
         csv_dir=a.csv_dir,
     )
+
+
+def resolve_device(name: str) -> torch.device:
+    """The device an entry point's ``--device`` names ("cuda", "cuda:1",
+    "cpu").  A CUDA device where no card is visible raises: a program runs
+    on the CPU only when the caller asks for it."""
+    dev = torch.device(name)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"--device {name}: no CUDA card is visible "
+                               f"(torch.cuda.is_available() is false); pass "
+                               f"--device cpu to run on the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev

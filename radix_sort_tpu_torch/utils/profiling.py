@@ -2,10 +2,12 @@
 
 Port of ``radix_sort_tpu/utils/profiling.py``:
 
-- :func:`time_ms` — the time of one call of a function: CUDA events on a
-  card (the device's own clock; no transport to work around, so the JAX
-  package's ``chained_time`` has no counterpart), ``perf_counter`` on the
-  CPU.  The device is explicit: nothing here picks a card.
+- :func:`time_ms` / :func:`call_times` — the time of one call of a
+  function: CUDA events on a card (the device's own clock; no transport to
+  work around, so the JAX package's ``chained_time`` has no counterpart),
+  ``perf_counter`` on the CPU.  The device is explicit: nothing here picks
+  a card.  :func:`rank_ms` times a call of every rank of a mesh.
+- :func:`device_info` — the card's name and power limit.
 - :func:`trace` — ``torch.profiler`` over the enclosed work, written as a
   trace that TensorBoard or Perfetto open, inside an NVTX range on a card.
 - :func:`roofline` — achieved bytes/s over the card's memory bandwidth.
@@ -14,6 +16,7 @@ Port of ``radix_sort_tpu/utils/profiling.py``:
 from __future__ import annotations
 
 import contextlib
+import subprocess
 import time
 
 import numpy as np
@@ -40,8 +43,11 @@ def device_hbm_gbs(device) -> float | None:
     return None
 
 
-def time_ms(fn, device, reps: int = 3, warmup: int = 1) -> float:
-    """Median time of one call of ``fn`` on ``device``, in ms."""
+def call_times(fn, device, reps: int = 3, warmup: int = 1) -> list:
+    """The time of each of ``reps`` calls of ``fn`` on ``device`` after
+    ``warmup`` calls, in ms: CUDA events around the call on a card (the
+    host work of the call inside the window), the host clock on the
+    CPU."""
     device = torch.device(device)
     on_card = device.type == "cuda"
     for _ in range(warmup):
@@ -61,7 +67,60 @@ def time_ms(fn, device, reps: int = 3, warmup: int = 1) -> float:
             t0 = time.perf_counter()
             fn()
             times.append((time.perf_counter() - t0) * 1e3)
-    return float(np.median(times))
+    return times
+
+
+def time_ms(fn, device, reps: int = 3, warmup: int = 1) -> float:
+    """Median time of one call of ``fn`` on ``device``, in ms."""
+    return float(np.median(call_times(fn, device, reps, warmup)))
+
+
+def rank_ms(fn, mesh, reps: int = 3, warmup: int = 1) -> float:
+    """The slowest rank's median host-clock ms of ``fn`` over ``reps``
+    calls after ``warmup``: each call starts after a barrier of the mesh
+    and ends by a synchronize of the rank's card.  Every rank of the mesh
+    calls it (one all_reduce of max)."""
+    import torch.distributed as dist
+
+    on_card = mesh.device.type == "cuda"
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        dist.barrier(group=mesh.group)
+        if on_card:
+            torch.cuda.synchronize(mesh.device)
+        t0 = time.perf_counter()
+        fn()
+        if on_card:
+            torch.cuda.synchronize(mesh.device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    t = torch.tensor([float(np.median(times))], dtype=torch.float64,
+                     device=mesh.device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.group)
+    return float(t[0])
+
+
+def device_info(device) -> dict:
+    """``{"name", "power_limit_w"}`` of ``device``: the card's name and
+    power limit as ``nvidia-smi --query-gpu=name,power.limit`` reads them
+    (the limit None where nvidia-smi cannot be read), ``"cpu"`` and None
+    off a card.  Every number a program reports stands beside these."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return {"name": "cpu", "power_limit_w": None}
+    index = device.index if device.index is not None else (
+        torch.cuda.current_device())
+    name, limit = torch.cuda.get_device_name(index), None
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader,nounits", "-i", str(index)],
+            capture_output=True, text=True, check=True, timeout=30).stdout
+        limit = float(out.strip().splitlines()[0].rsplit(",", 1)[1])
+    except (OSError, subprocess.SubprocessError, ValueError, IndexError):
+        pass
+    return {"name": name, "power_limit_w": limit}
 
 
 @contextlib.contextmanager
@@ -97,10 +156,28 @@ def roofline(bytes_moved: int, seconds: float, device) -> float | None:
 
 
 def sort_min_bytes(n: int, key_dtype, bits_per_pass: int = 8,
-                   payload_bytes: int = 0) -> int:
+                   payload_bytes: int = 0, passes: int | None = None) -> int:
     """Speed-of-light traffic for an LSD radix sort: one read + one write of
-    keys (+ payload) per pass, plus a digit-read for the histogram pass."""
+    keys (+ payload) per pass, plus a digit-read for the histogram pass.
+    ``passes`` is the passes the sort runs (default: every pass of the
+    key width)."""
     kb = np.dtype(key_dtype).itemsize
-    passes = (kb * 8) // bits_per_pass
+    if passes is None:
+        passes = (kb * 8) // bits_per_pass
     row = kb + payload_bytes
     return passes * n * (2 * row + kb)
+
+
+def radix_passes_run(keys: np.ndarray, bits_per_pass: int = 8) -> int:
+    """The passes the radix engine runs on ``keys``: it skips every pass
+    whose digit is the same in every key (``ops/stream._sort_planes``), so
+    a pass runs where some key differs from the first in its digit."""
+    from .. import dtypes
+
+    if keys.size == 0:
+        return 0
+    u = dtypes.np_to_sortable_unsigned(keys)
+    varying = int(np.bitwise_or.reduce(u ^ u[0]))
+    mask = (1 << bits_per_pass) - 1
+    return sum(1 for shift in range(0, 8 * u.itemsize, bits_per_pass)
+               if (varying >> shift) & mask)

@@ -324,3 +324,52 @@ def test_cuda_one_nccl_rank_sort_and_ops():
     np.testing.assert_array_equal(res["agg"]["k"][order], uk)
     np.testing.assert_array_equal(res["agg"]["n"][order], cnt)
     assert res["matches"] == probe["k"].size
+
+
+def test_make_mesh_in_a_gloo_group_without_a_card_raises(monkeypatch):
+    """Inside a running gloo group with no device named, the mesh goes on
+    the card; where no card is visible it raises instead of settling on
+    the CPU, and device="cpu" asks for the CPU."""
+    import torch.distributed as dist
+
+    for name, fn in (("is_initialized", lambda: True),
+                     ("get_backend", lambda *_a: "gloo"),
+                     ("get_world_size", lambda *_a: 2),
+                     ("get_rank", lambda *_a: 1)):
+        monkeypatch.setattr(dist, name, fn)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(ValueError, match="no CUDA card"):
+        mesh_lib.make_mesh()
+    mesh = mesh_lib.make_mesh(device="cpu")
+    assert (mesh.rank, mesh.size, mesh.device.type) == (1, 2, "cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert mesh_lib.make_mesh().device == torch.device("cuda", 0)
+
+
+def test_initialize_under_torchrun_without_a_card_raises(monkeypatch):
+    """A torchrun-style launch joins over NCCL unless the caller passes
+    backend="gloo"; with no card visible, NCCL raises before the group is
+    joined instead of settling on gloo."""
+    import torch.distributed as dist
+
+    joined = []
+    monkeypatch.setattr(dist, "is_initialized", lambda: False)
+    monkeypatch.setattr(dist, "get_rank", lambda *_a: 0)
+    monkeypatch.setattr(
+        dist, "init_process_group",
+        lambda backend, init_method=None, **kw: joined.append(
+            (backend, init_method)))
+    monkeypatch.setattr(torch.cuda, "set_device", lambda *_a: None)
+    for var, value in (("MASTER_ADDR", "localhost"), ("MASTER_PORT", "29500"),
+                       ("WORLD_SIZE", "2"), ("RANK", "0")):
+        monkeypatch.setenv(var, value)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(ValueError, match="backend='gloo'"):
+        runtime.initialize()
+    assert joined == []
+    runtime.initialize(backend="gloo")
+    assert joined == [("gloo", "env://")]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    runtime.initialize()
+    assert joined[-1] == ("nccl", "env://")

@@ -285,3 +285,25 @@ def test_native_baseline_bridge(tmp_path, monkeypatch):
         assert task.cpu_runtimes.radix.n == 2
     finally:
         native_baseline._load.cache_clear()
+
+
+@pytest.mark.parametrize("dtype", [np.uint32, np.int32, np.uint64, np.int64],
+                         ids=["u32", "i32", "u64", "i64"])
+@pytest.mark.parametrize("name", ["Zeros", "RandomDistributed", "Random",
+                                  "Range", "InvertedRange"])
+def test_radix_passes_run_is_the_sorts_skip_rule(dtype, name):
+    """The harness's roofline counts the passes the radix engine runs on
+    the row's keys: those that no single digit fills in the sort's own
+    digit table (pass_histograms)."""
+    from radix_sort_tpu_torch.ops import cuda_radix, stream
+
+    ds = next(d for d in datasets.make_datasets(dtype, seed=0)
+              if d.name == name)
+    keys = ds.generate(3000)
+    planes = stream._key_word_planes(tdt.to_sortable(
+        tdt.tensor_from_numpy(keys, "cpu")))
+    hist = cuda_radix.pass_histograms(planes, (4,) * len(planes), 256)
+    runs = int((hist.max(dim=1).values < keys.size).sum())
+    assert profiling.radix_passes_run(keys) == runs
+    assert profiling.sort_min_bytes(3000, dtype, passes=runs) == \
+        runs * 3000 * 3 * np.dtype(dtype).itemsize

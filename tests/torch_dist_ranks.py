@@ -408,3 +408,25 @@ def nccl_case(mesh):
     return {"sort": (_np(ks), _np(vs)), "agg": agg.to_numpy(),
             "matches": int(stats["match_count"]),
             "launches": cuda_radix.launch_counts()}
+
+
+def config5_script_case(mesh, n):
+    """scripts/torch_baseline_configs.py's config 5 on this rank at ``n``
+    probe rows: its operators' results (numpy) and config5_query's checks.
+    The test puts scripts/ on the path the ranks start from."""
+    import torch_baseline_configs as tbc
+
+    from radix_sort_tpu_torch.config import DEFAULT_CONFIG
+
+    pk = tbc.config5_probe(n)
+    probe, build = tbc.config5_tables(mesh, pk)
+    ops = tbc.config5_operators(probe, build, mesh, DEFAULT_CONFIG)
+    joined, stats = ops["join"]()
+    agg, _ = ops["aggregate"]()
+    ks, vs, overflow = ops["sort"]()
+    checks = tbc.config5_query(mesh, pk)
+    return {"joined": joined.to_numpy(), "matches": int(stats["match_count"]),
+            "agg": agg.to_numpy(), "ks": _np(ks), "vs": _np(vs),
+            "overflow": bool(overflow),
+            "checks": {k: checks[k] for k in ("join_valid", "agg_valid",
+                                              "sort_valid")}}
