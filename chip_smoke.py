@@ -7,8 +7,9 @@ Builds the CUDA kernels of ``radix_sort_tpu_torch`` from ``csrc/`` (into
 host baselines of ``native/`` where a C++ compiler is present, holds each
 kernel bit-exact against its plain torch version at the shapes the main
 path gives it (the onesweep pass in look-back mode at u32 KV 2^27 on
-RandomDistributed and Zeros, u64 KV 2^27, a ragged n, 17 planes and the
-partition's pass; ``pass_histograms`` at 2^27 for 32- and 64-bit keys;
+RandomDistributed and Zeros, u64 KV 2^27, u8 and f16 KV 2^27, a ragged n,
+17 planes and the partition's pass; ``pass_histograms`` at 2^27 for 8-,
+16-, 32- and 64-bit keys;
 ``rank_scatter`` in base-table mode at 2^22; ``tile_sort`` and every
 ``merge_level`` of a 2^25 merge sort on RandomDistributed, Zeros, Range and
 disjoint runs, levels 0 and 10 against the plain versions with their
@@ -30,6 +31,16 @@ launch counters set to 0 just before it and read just after:
   - config 4: ``hash_join`` of a 2^20-row probe against a 2^18-row unique
     build, checked against numpy (configs 3, 4 and 5 as
     scripts/torch_baseline_configs.py runs and checks them);
+  - ``[dtypes]``: ``sort_kv`` of uint8, int8 and float16 keys + int32 iota
+    at 2^27 (RandomDistributed made on the card, and uint8 Zeros), each
+    in one ``pass_histograms`` and one ``onesweep_pass`` a byte of key
+    (none where one digit fills the pass), checked like ``[sort]`` with
+    every key against a counting sort of the sortable images, and timed
+    beside ``engine="torch_sort"`` and a bare ``torch.sort(keys,
+    stable=True)`` on the caller's narrow tensor; then a ``Query`` over
+    2^26 rows (``group_by`` a uint8 key with count/sum/min/max of a
+    float16 column, ``top_k`` of that column, a window ordered by an int8
+    key) against numpy oracles;
 
   the merge path
   - ``sort(engine="merge")``: u32 key-only at 2^25 over the five
@@ -330,7 +341,10 @@ def phase_kernels(dev, rt, cr, cm):
     # pass_histograms: every pass of a u32 and of a u64 key at 2^27, one
     # launch each (R = 256), and R = 2 / 16 over one plane
     hi = torch.from_numpy(rng.integers(0, 1 << 20, n).astype(np.int32)).to(dev)
-    cases = [("u32 2^27 (4 passes)", (x,), (4,), 256),
+    img8, img16 = narrow_images(rt, n, dev)
+    cases = [("u8 image 2^27 (1 pass)", (img8,), (1,), 256),
+             ("f16 image 2^27 (2 passes)", (img16,), (2,), 256),
+             ("u32 2^27 (4 passes)", (x,), (4,), 256),
              ("u64 2^27 (lo + hi, 8 passes)", (x, hi), (4, 4), 256),
              ("u32 2^27 R=16 (8 passes)", (x,), (8,), 16),
              ("u32 2^26 R=2 (32 passes)", (x[:1 << 26],), (32,), 2)]
@@ -346,7 +360,7 @@ def phase_kernels(dev, rt, cr, cm):
     print(f"[kernels] pass_histograms u32 2^27: device {t['ms']:.5f} ms "
           f"(bound {res['pass_histograms']['bound_ms']:.5f} ms), plain "
           f"{t['plain_ms']:.5f} ms; u64 2^27: {t64:.5f} ms", flush=True)
-    del x, hi
+    del x, hi, img8, img16
 
     # K2 on the (R*B) histograms of a 2^27 and a 2^25 sort (2^23 and 2^21
     # counts), a ragged size, values that wrap int32, and a view that
@@ -530,10 +544,21 @@ def merge_levels(cm, tiles):
     return level_in, cur
 
 
+def narrow_images(rt, n: int, dev):
+    """Sortable images of ``n`` uint8 and float16 RandomDistributed keys
+    made on the card: the key planes of 8- and 16-bit sorts."""
+    gen = rt.datasets_device.generate
+    return (rt.dtypes.to_sortable(gen("RandomDistributed", np.uint8, n,
+                                      seed=4, device=dev)),
+            rt.dtypes.to_sortable(gen("RandomDistributed", np.float16, n,
+                                      seed=5, device=dev)))
+
+
 def phase_onesweep(dev, rt, cr, note, res):
     """The pass kernel in look-back mode against its plain version: a u32
-    KV pass at 2^27 (RandomDistributed and Zeros), a u64 KV pass, a ragged
-    n, 17 planes, and the partition's pass (digit plane not moved)."""
+    KV pass at 2^27 (RandomDistributed and Zeros), a u64 KV pass, the
+    passes of u8 and f16 KV sorts, a ragged n, 17 planes, and the
+    partition's pass (digit plane not moved)."""
     n = 1 << 27
     tile = rt.DEFAULT_CONFIG.tile_elems  # the sort's tile
     iota = torch.arange(n, dtype=torch.int32, device=dev)
@@ -576,6 +601,11 @@ def phase_onesweep(dev, rt, cr, note, res):
     check("u64 KV n=2^27 (lo, hi, payload; hi plane, shift 16)", hi,
           (lo, hi, iota), shift=16)
     del lo, hi
+    img8, img16 = narrow_images(rt, n, dev)
+    check("u8 KV n=2^27 (the one pass, shift 0)", img8, (img8, iota))
+    check("f16 KV n=2^27 (pass 2 of 2, shift 8)", img16, (img16, iota),
+          shift=8)
+    del img8, img16
     m = n - 777
     x = torch.from_numpy(np.random.default_rng(1).integers(
         -2**31, 2**31, m).astype(np.int32)).to(dev)
@@ -588,11 +618,13 @@ def phase_onesweep(dev, rt, cr, note, res):
     del x, ids, iota
 
 
-def check_sorted_kv(rt, keys_in, keys_out, perm, host_keys, what):
+def check_sorted_kv(rt, keys_in, keys_out, perm, host_keys, what,
+                    oracle=np.sort):
     """On the device: sorted, same key multiset (sum + xor), payload is the
     permutation that produced the keys, stable within equal keys.  On the
-    host: a 2^20 prefix against np.sort.  Sums and xors run on the
-    sortable bits, a bijection of the keys that floats have too."""
+    host: a 2^20 prefix against ``oracle(host_keys)`` (np.sort).  Sums and
+    xors run on the sortable bits, a bijection of the keys that floats
+    have too."""
     bi = rt.dtypes.to_sortable(keys_in)
     bo = rt.dtypes.to_sortable(keys_out)
     so = rt.dtypes.signed_order(bo)
@@ -608,7 +640,7 @@ def check_sorted_kv(rt, keys_in, keys_out, perm, host_keys, what):
     pre = 1 << 20
     host = rt.dtypes.tensor_to_numpy(keys_out[:pre])
     require(np.array_equal(host.view(np.uint8),
-                            np.sort(host_keys)[:pre].view(np.uint8)),
+                            oracle(host_keys)[:pre].view(np.uint8)),
             f"{what}: 2^20 prefix differs from np.sort")
 
 
@@ -641,6 +673,161 @@ def phase_sort(dev, rt):
         results.append((what, ms, ms_t))
         del keys, ko, perm
     return results
+
+
+# (dtype, dataset) of the [dtypes] phase's 2^27 KV sorts
+NARROW_SORTS = ((np.uint8, "RandomDistributed"), (np.uint8, "Zeros"),
+                (np.int8, "RandomDistributed"),
+                (np.float16, "RandomDistributed"))
+
+
+def counting_sort(rt, host: np.ndarray) -> np.ndarray:
+    """1- and 2-byte keys in the sort's order, by counting their sortable
+    images (np.sort of float16 at 2^27 takes seconds)."""
+    img = rt.dtypes.np_to_sortable_unsigned(host)
+    counts = np.bincount(img, minlength=1 << (8 * host.itemsize))
+    return rt.dtypes.np_from_sortable_unsigned(
+        np.repeat(np.arange(counts.size, dtype=img.dtype), counts),
+        host.dtype)
+
+
+def phase_dtypes(dev, rt):
+    """uint8, int8 and float16 KV sorts at 2^27 at their own width, and a
+    Query over narrow columns at 2^26 (phase_dtypes_query)."""
+    n = 1 << 27
+    iota = torch.arange(n, dtype=torch.int32, device=dev)
+    for dtype, name in NARROW_SORTS:
+        d = np.dtype(dtype)
+        keys = rt.datasets_device.generate(name, d, n, seed=9, device=dev)
+        host = rt.dtypes.tensor_to_numpy(keys)
+        what = f"sort_kv {d.name} {name} 2^27"
+        before = launch_counts()
+        ko, perm = rt.sort_kv(keys, iota)
+        torch.cuda.synchronize()
+        after = launch_counts()
+        launched = {k: after[k] - before[k]
+                    for k in ("pass_histograms", "onesweep_pass")}
+        passes = 0 if name == "Zeros" else d.itemsize
+        require(launched == {"pass_histograms": 1, "onesweep_pass": passes},
+                f"{what}: launches {launched}, want 1 pass_histograms and "
+                f"{passes} onesweep_pass")
+        want = counting_sort(rt, host)
+        check_sorted_kv(rt, keys, ko, perm, host, what,
+                        oracle=lambda _: want)
+        require(np.array_equal(rt.dtypes.tensor_to_numpy(ko).view(np.uint8),
+                               want.view(np.uint8)),
+                f"{what}: keys differ from the counting sort")
+        ms = time_ms(lambda: rt.sort_kv(keys, iota))
+        ms_t = time_ms(lambda: rt.sort_kv(keys, iota, engine="torch_sort"))
+        ms_b = time_ms(lambda: torch.sort(keys, stable=True))
+        print(f"[dtypes] {what}: validated (every key vs a counting sort, "
+              f"payload stable); launches {launched}; radix {ms:.3f} ms "
+              f"({n / ms / 1e3:.1f} Mpairs/s), engine torch_sort "
+              f"{ms_t:.3f} ms ({n / ms_t / 1e3:.1f} Mpairs/s), bare "
+              f"torch.sort {ms_b:.3f} ms ({n / ms_b / 1e3:.1f} Mpairs/s)",
+              flush=True)
+        del keys, ko, perm
+    del iota
+    phase_dtypes_query(dev, rt)
+
+
+def phase_dtypes_query(dev, rt):
+    """A Query over 2^26 rows (4099 padding) with narrow columns: group_by
+    a uint8 key (count, sum of int32, min/max of float16) against numpy
+    over every group; top_k of the float16 column (ties to the earlier
+    row) against a numpy selection; a window over 4096-row partitions
+    ordered by an int8 key (row_number, rank, cum_sum, first_value of the
+    float16 column) against a numpy lexsort oracle on the first 2^20 rows,
+    and its row numbers by checksum over every full partition.  Each
+    timed beside engine="torch_sort"."""
+    n = 1 << 26
+    m = n - PADDING
+    gen = rt.datasets_device.generate
+    cols = {"g": gen("RandomDistributed", np.uint8, n, seed=11, device=dev),
+            "h": gen("RandomDistributed", np.float16, n, seed=12,
+                     device=dev),
+            "o": gen("RandomDistributed", np.int8, n, seed=13, device=dev),
+            "p": (torch.arange(n, device=dev) >> 12).to(torch.int32),
+            "x": torch.randint(-100, 100, (n,), dtype=torch.int32,
+                               device=dev),
+            "row": torch.arange(n, dtype=torch.int32, device=dev)}
+    t = rt.Table(cols, num_rows=m)
+    host = {k: rt.dtypes.tensor_to_numpy(v[:m]) for k, v in cols.items()}
+
+    def group(config=rt.DEFAULT_CONFIG):
+        return rt.Query(t, config).group_by(
+            "g", n=("count", None), s=("sum", "x"), lo=("min", "h"),
+            hi=("max", "h")).collect()
+
+    order = np.argsort(host["g"], kind="stable")
+    counts = np.bincount(host["g"], minlength=256)
+    starts = (np.cumsum(counts) - counts)[counts > 0]
+    hs = host["h"][order]
+    want = {"g": np.nonzero(counts)[0].astype(np.uint8),
+            "n": counts[counts > 0].astype(np.int32),
+            "s": np.bincount(host["g"], weights=host["x"],
+                             minlength=256)[counts > 0].astype(np.int32),
+            "lo": np.minimum.reduceat(hs, starts),
+            "hi": np.maximum.reduceat(hs, starts)}
+    got = group().to_numpy()
+    for k, w in want.items():
+        require(np.array_equal(got[k].view(np.uint8), w.view(np.uint8)),
+                f"dtypes query: group_by column {k} differs")
+
+    k_top = 1000
+
+    def top(config=rt.DEFAULT_CONFIG):
+        return rt.Query(t, config).top_k("h", k_top).collect()
+
+    img = rt.dtypes.np_to_sortable_unsigned(host["h"]).astype(np.int64)
+    kth = np.partition(img, m - k_top)[m - k_top]
+    cand = np.nonzero(img >= kth)[0]
+    best = cand[np.lexsort((cand, -img[cand]))][:k_top]
+    got = top().to_numpy()
+    require(np.array_equal(got["row"], best.astype(np.int32))
+            and np.array_equal(got["h"].view(np.uint8),
+                               host["h"][best].view(np.uint8)),
+            "dtypes query: top_k rows differ")
+
+    def window(config=rt.DEFAULT_CONFIG):
+        return rt.Query(t, config).window(
+            "p", "o", rn=("row_number",), rk=("rank",), s=("cum_sum", "x"),
+            fv=("first_value", "h")).collect()
+
+    out = window()
+    pre = 1 << 20  # 256 whole partitions
+    p, o = host["p"][:pre], host["o"][:pre]
+    srt = np.lexsort((np.arange(pre), o, p))
+    ps, os_ = p[srt], o[srt]
+    start = np.searchsorted(ps, ps)
+    rn = np.arange(pre) - start + 1
+    tie = np.r_[True, (ps[1:] != ps[:-1]) | (os_[1:] != os_[:-1])]
+    rk = rn[np.maximum.accumulate(np.where(tie, np.arange(pre), 0))]
+    cs = np.cumsum(host["x"][:pre][srt].astype(np.int64))
+    s = cs - cs[start] + host["x"][:pre][srt][start]
+    fv = host["h"][:pre][srt][start]
+    for name, w in (("rn", rn), ("rk", rk), ("s", s), ("fv", fv)):
+        want = np.empty_like(w)
+        want[srt] = w
+        got = rt.dtypes.tensor_to_numpy(out[name][:pre])
+        require(np.array_equal(got.view(np.uint8),
+                               want.astype(got.dtype).view(np.uint8)),
+                f"dtypes query: window {name} differs on the first 2^20 "
+                f"rows")
+    full = m >> 12  # partitions with no padding row
+    require(int(out["rn"][:full << 12].sum()) == full * 4096 * 4097 // 2,
+            "dtypes query: window row numbers' checksum differs")
+    del out
+    times = [beside_torch_sort(rt, fn) for fn in (group, top, window)]
+    print(f"[dtypes] Query over 2^26 rows ({PADDING} padding): group_by "
+          f"uint8 (count, sum, min/max float16; 256 groups vs numpy) "
+          f"{times[0][0]:.3f} ms ({n / times[0][0] / 1e3:.1f} Mrows/s), with "
+          f"torch.sort {times[0][1]:.3f} ms; top_k float16 k={k_top} "
+          f"{times[1][0]:.3f} ms, with torch.sort {times[1][1]:.3f} ms; "
+          f"window over 4096-row partitions ordered by int8 "
+          f"{times[2][0]:.3f} ms ({n / times[2][0] / 1e3:.1f} Mrows/s), "
+          f"with torch.sort {times[2][1]:.3f} ms: validated", flush=True)
+    del t, cols
 
 
 def _profile(fn, iters: int) -> list:
@@ -1682,7 +1869,8 @@ def main() -> int:
     radix = run_path("radix", (lambda: phase_sort(dev, rt),
                                lambda: phase_profile(dev, rt),
                                lambda: phase_config3(dev, rt),
-                               lambda: phase_config4(dev, rt)), radix_kernels)
+                               lambda: phase_config4(dev, rt),
+                               lambda: phase_dtypes(dev, rt)), radix_kernels)
     # the harness's per-phase timings run the three-launch pass
     merge = run_path("merge", (lambda: phase_merge(dev, rt),
                                lambda: phase_merge_profile(dev, rt),

@@ -5,8 +5,11 @@ datasets.py made on the device with a ``torch.Generator`` there, so
 benchmark data never crosses from the host.  The contract is the JAX
 package's, not its random bits: the dtype and shape, all-zero ``Zeros``,
 ``Range`` / ``InvertedRange`` equal to the host datasets, uniform random
-bits (floats uniform in [-1e9, 1e9)) with the dtype's extremes planted at
-index 0 and n-1 for ``RandomDistributed`` (-inf and +inf for floats).
+bits (floats uniform in [-1e9, 1e9), float16 in its finite range) with the
+dtype's extremes planted at index 0 and n-1 for ``RandomDistributed``
+(-inf and +inf for floats).  Where the JAX twin's shape or range fails
+(an (n, 8 / itemsize) array for 1- and 2-byte signed ints, NaN between
+the plants for float16), the port keeps the contract.
 
 ``Random`` (fixed-seed mt19937 on the host) has no device twin: it draws
 the same uniform bits as ``RandomDistributed`` without the planted
@@ -40,7 +43,7 @@ def _random_bits(n: int, width: int, gen: torch.Generator, device):
 def generate(name: str, dtype, n: int, seed: int = 0, device="cuda"):
     """Dataset ``name`` of ``n`` keys of ``dtype`` as a tensor on
     ``device`` (the card unless the caller asks for the CPU).  Names are
-    ``ALL_NAMES``; 2-, 4- and 8-byte ints and 4- and 8-byte floats."""
+    ``ALL_NAMES``; ints and floats of every width the sort takes."""
     if name not in ALL_NAMES:
         raise ValueError(f"unknown dataset {name!r}")
     d = np.dtype(dtype)
@@ -59,15 +62,18 @@ def generate(name: str, dtype, n: int, seed: int = 0, device="cuda"):
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     if d.kind == "f":
-        out = torch.rand(n, generator=gen, dtype=td, device=device)
-        out = out * 2e9 - 1e9
+        # float16 draws in float32 over its own finite range
+        lim = min(1e9, float(np.finfo(d).max))
+        wide = torch.float32 if d.itemsize < 4 else td
+        out = torch.rand(n, generator=gen, dtype=wide, device=device)
+        out = (out * (2 * lim) - lim).to(td)
     else:
         out = _narrow(_random_bits(n, width, gen, device), d)
     if name == "RandomDistributed" and n >= 2:
         c = dtypes.as_container(out)
         if d.kind == "f":
             lo, hi = float("-inf"), float("inf")
-        elif d.kind == "u" and width >= 32:
+        elif c.dtype != out.dtype:  # uint16/32/64 in signed containers
             lo, hi = 0, -1  # all bits set in the signed container
         else:
             lo, hi = int(np.iinfo(d).min), int(np.iinfo(d).max)

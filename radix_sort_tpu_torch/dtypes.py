@@ -1,7 +1,7 @@
 """Key-type registry and order-preserving bit transforms, on torch tensors.
 
 Port of ``radix_sort_tpu/dtypes.py``.  Every key travels as the bit pattern
-of a *signed* container (int32 for 2- and 4-byte keys, int64 for 8-byte
+of a *signed* container (int32 for 1-, 2- and 4-byte keys, int64 for 8-byte
 keys): torch has no ``>>`` and no ``index_put_`` for uint32 on the CPU, so
 the unsigned containers of the JAX package never appear inside the port.
 The "sortable" image of a key is the bit pattern whose UNSIGNED order
@@ -12,13 +12,19 @@ equals the key's order (the reference's OFFSET bias,
 - signed ints: the sign bit flipped;
 - floats: all bits flipped for negatives, the sign bit for the rest.
 
-A 16-bit key's image is its 16-bit pattern (bit 15 flipped for int16)
-zero-extended into int32, so its sort needs 16 bits of digits only.
+A 1- or 2-byte key's image is its own-width image zero-extended into
+int32, so its sort needs 8 or 16 bits of digits only.
+
+Keys are accepted by kind and width, as the JAX ``to_sortable_unsigned``
+accepts them: unsigned, signed and float keys of 1, 2, 4 or 8 bytes
+(``uint8`` and ``float16`` included); any other dtype (``bool``,
+``bfloat16``, complex) raises ``TypeError``.  The registry below names
+the harness's key types only, as the JAX package's does.
 
 A radix digit ``(x >> s) & (R - 1)`` of the signed container is exact: the
-mask drops every bit an arithmetic shift fills in.  Callers' uint32/uint64
-tensors are viewed as int32/int64 on the way in and viewed back on the way
-out (a view costs nothing on any device).
+mask drops every bit an arithmetic shift fills in.  Callers'
+uint16/uint32/uint64 tensors are viewed as int16/int32/int64 on the way in
+and viewed back on the way out (a view costs nothing on any device).
 """
 
 from __future__ import annotations
@@ -47,11 +53,14 @@ _TORCH_TO_NP = {
     torch.float32: np.dtype(np.float32), torch.float64: np.dtype(np.float64),
     torch.int16: np.dtype(np.int16), torch.uint16: np.dtype(np.uint16),
     torch.int8: np.dtype(np.int8), torch.uint8: np.dtype(np.uint8),
-    torch.bool: np.dtype(np.bool_),
+    torch.float16: np.dtype(np.float16), torch.bool: np.dtype(np.bool_),
 }
 _NP_TO_TORCH = {v: k for k, v in _TORCH_TO_NP.items()}
-_SIGNED_CONTAINER = {2: torch.int32, 4: torch.int32, 8: torch.int64}
-_BIT15 = 1 << 15
+_SIGNED_CONTAINER = {1: torch.int32, 2: torch.int32, 4: torch.int32,
+                     8: torch.int64}
+# same-width ints that 1- and 2-byte keys are bit-viewed as
+_NARROW_INT = {1: torch.int8, 2: torch.int16}
+_NARROW_UINT = {1: torch.uint8, 2: torch.uint16}
 
 
 def type_name(dtype) -> str:
@@ -67,6 +76,8 @@ def c_name(dtype) -> str:
 def np_dtype(dtype) -> np.dtype:
     """numpy dtype of a torch or numpy dtype."""
     if isinstance(dtype, torch.dtype):
+        if dtype not in _TORCH_TO_NP:
+            raise TypeError(f"no numpy dtype for {dtype}")
         return _TORCH_TO_NP[dtype]
     return np.dtype(dtype)
 
@@ -102,52 +113,87 @@ def sign_bit(bits: int) -> int:
     return -(1 << (bits - 1))
 
 
+# unsigned dtypes that torch's CPU kernels lack most ops for (ordered
+# comparisons, index_select, index_add_, ...) travel as same-width signed
+# views
+_SIGNED_VIEW = {torch.uint16: torch.int16, torch.uint32: torch.int32,
+                torch.uint64: torch.int64}
+
+
+def container_dtype(dtype) -> torch.dtype:
+    """The dtype :func:`as_container` gives tensors of ``dtype``."""
+    dtype = torch_dtype(dtype)
+    return _SIGNED_VIEW.get(dtype, dtype)
+
+
 def as_container(x: torch.Tensor) -> torch.Tensor:
-    """View uint32/uint64 tensors as int32/int64; other dtypes unchanged."""
-    if x.dtype in (torch.uint32, torch.uint64):
-        return x.view(signed_container(x.dtype))
+    """View uint16/uint32/uint64 tensors as int16/int32/int64; other dtypes
+    unchanged."""
+    if x.dtype in _SIGNED_VIEW:
+        return x.view(_SIGNED_VIEW[x.dtype])
     return x
 
 
 def from_container(x: torch.Tensor, dtype) -> torch.Tensor:
     """Inverse of :func:`as_container` for a tensor of logical ``dtype``."""
     dtype = torch_dtype(dtype)
-    if dtype in (torch.uint32, torch.uint64):
+    if dtype in _SIGNED_VIEW:
         return x.view(dtype)
     return x
 
 
-def to_sortable(keys: torch.Tensor) -> torch.Tensor:
-    """Keys → signed-container bits whose unsigned order is the key order."""
-    d = np_dtype(keys.dtype)
-    if d not in SUPPORTED_KEY_DTYPES:
+def key_dtype(dtype) -> np.dtype:
+    """numpy dtype of a key dtype the sort accepts: unsigned, signed or
+    float of 1, 2, 4 or 8 bytes, as the JAX ``to_sortable_unsigned``
+    accepts them by kind; ``TypeError`` for any other."""
+    d = np_dtype(dtype)
+    if d.kind not in "uif" or d.itemsize not in _SIGNED_CONTAINER:
         raise TypeError(f"unsupported key dtype {d}")
-    if d.itemsize == 2:
-        bits = keys.to(torch.int32) & 0xFFFF
-        return bits ^ _BIT15 if d.kind == "i" else bits
-    bits = keys.view(signed_container(d))
-    sign = sign_bit(key_bits(d))
-    if d.kind == "u":
+    return d
+
+
+def _image(bits: torch.Tensor, kind: str, width: int) -> torch.Tensor:
+    """The sortable image of ``width``-bit keys bit-viewed as the signed
+    int of that width: the sign bit flipped for ints, and for floats every
+    bit of a negative (the arithmetic shift gives -1), the sign bit of the
+    rest."""
+    sign = sign_bit(width)
+    if kind == "u":
         return bits
-    if d.kind == "i":
+    if kind == "i":
         return bits ^ sign
-    # floats: negatives (the arithmetic shift gives -1) flip every bit,
-    # the rest flip the sign bit only
-    return bits ^ ((bits >> (key_bits(d) - 1)) | sign)
+    return bits ^ ((bits >> (width - 1)) | sign)
+
+
+def _unimage(bits: torch.Tensor, kind: str, width: int) -> torch.Tensor:
+    """Inverse of :func:`_image` on the same signed int."""
+    sign = sign_bit(width)
+    if kind == "u":
+        return bits
+    if kind == "i":
+        return bits ^ sign
+    return bits ^ (~(bits >> (width - 1)) | sign)
+
+
+def to_sortable(keys: torch.Tensor) -> torch.Tensor:
+    """Keys → signed-container bits whose unsigned order is the key order.
+    A 1- or 2-byte key takes its image at its own width (a float is
+    bit-viewed, never converted), then zero-extends into int32."""
+    d = key_dtype(keys.dtype)
+    if d.itemsize < 4:
+        img = _image(keys.view(_NARROW_INT[d.itemsize]), d.kind, key_bits(d))
+        return img.view(_NARROW_UINT[d.itemsize]).to(torch.int32)
+    return _image(keys.view(signed_container(d)), d.kind, key_bits(d))
 
 
 def from_sortable(bits: torch.Tensor, dtype) -> torch.Tensor:
-    """Inverse of :func:`to_sortable`: bits back to the caller's dtype."""
-    d = np_dtype(dtype)
-    if d.itemsize == 2:
-        # int32 -> int16 wraps, so the flipped pattern narrows exactly
-        return (bits ^ _BIT15 if d.kind == "i" else bits).to(torch_dtype(d))
-    sign = sign_bit(key_bits(d))
-    if d.kind == "u":
-        return from_container(bits, d)
-    if d.kind == "i":
-        return bits ^ sign
-    return (bits ^ (~(bits >> (key_bits(d) - 1)) | sign)).view(torch_dtype(d))
+    """Inverse of :func:`to_sortable`: bits back to the caller's dtype (a
+    1- or 2-byte key narrows first: int32 → int8/int16 keeps the low
+    bits)."""
+    d = key_dtype(dtype)
+    if d.itemsize < 4:
+        bits = bits.to(_NARROW_INT[d.itemsize])
+    return _unimage(bits, d.kind, key_bits(d)).view(torch_dtype(d))
 
 
 # Padding sentinel: the maximum UNSIGNED container value, every bit set,
@@ -158,7 +204,7 @@ SENTINEL_BITS = -1
 
 def complement(bits: torch.Tensor, total_bits: int) -> torch.Tensor:
     """Reverse the unsigned order of ``total_bits``-wide sortable bits (a
-    descending key), keeping a 16-bit image inside its 16 bits, where a
+    descending key), keeping an 8- or 16-bit image inside its width, where a
     bare ``~`` would set the container's upper bits too."""
     if total_bits == 8 * bits.element_size():
         return ~bits
@@ -175,32 +221,28 @@ def signed_order(bits: torch.Tensor) -> torch.Tensor:
 
 
 def np_to_sortable_unsigned(keys: np.ndarray) -> np.ndarray:
-    d = keys.dtype
+    d = key_dtype(keys.dtype)
     u = unsigned_container(d)
     if d.kind == "u":
         return keys
     if d.kind == "i":
         return keys.view(u) ^ u.type(1 << (key_bits(d) - 1))
-    if d.kind == "f":
-        bits = keys.view(u)
-        sign = u.type(1 << (key_bits(d) - 1))
-        mask = np.where((bits & sign) != 0, u.type(~u.type(0)), sign)
-        return bits ^ mask
-    raise TypeError(f"unsupported key dtype {d}")
+    bits = keys.view(u)
+    sign = u.type(1 << (key_bits(d) - 1))
+    mask = np.where((bits & sign) != 0, u.type(~u.type(0)), sign)
+    return bits ^ mask
 
 
 def np_from_sortable_unsigned(ukeys: np.ndarray, dtype) -> np.ndarray:
-    d = np.dtype(dtype)
+    d = key_dtype(dtype)
     u = unsigned_container(d)
     if d.kind == "u":
         return ukeys.astype(d)
     if d.kind == "i":
         return (ukeys ^ u.type(1 << (key_bits(d) - 1))).view(d)
-    if d.kind == "f":
-        sign = u.type(1 << (key_bits(d) - 1))
-        mask = np.where((ukeys & sign) != 0, sign, u.type(~u.type(0)))
-        return (ukeys ^ mask).view(d)
-    raise TypeError(f"unsupported key dtype {d}")
+    sign = u.type(1 << (key_bits(d) - 1))
+    mask = np.where((ukeys & sign) != 0, sign, u.type(~u.type(0)))
+    return (ukeys ^ mask).view(d)
 
 
 def tensor_from_numpy(a: np.ndarray, device="cuda") -> torch.Tensor:

@@ -73,8 +73,9 @@ def _mean_dtype(dtype: torch.dtype) -> torch.dtype:
 def _as_float(x: torch.Tensor, dtype: torch.dtype,
               logical: torch.dtype) -> torch.Tensor:
     """Container values of logical dtype ``logical`` → float ``dtype``."""
-    if logical == torch.uint32:
-        return (x.to(torch.int64) & 0xFFFFFFFF).to(dtype)
+    if logical in (torch.uint16, torch.uint32):
+        return (x.to(torch.int64) & ((1 << dtypes.key_bits(logical)) - 1)
+                ).to(dtype)
     if logical == torch.uint64:
         # both halves convert exactly, so the sum rounds once, as a direct
         # uint64 -> float64 conversion does
@@ -164,8 +165,10 @@ def _segmented_scan(vals: torch.Tensor, is_new: torch.Tensor, op: str,
         c = torch.cumsum(v, 0, dtype=v.dtype)
         out = c - torch.index_select(c - v, 0, start)
     else:
+        if v.dtype.is_floating_point and op != "add":
+            return _float_select_scan(v, start, pos, op)
         flip = v.dtype != logical and dtypes.is_unsigned(logical)
-        if flip:  # min/max of uint32/uint64 in unsigned order
+        if flip:  # min/max of uint16/32/64 in unsigned order
             v = dtypes.signed_order(v)
         out = _doubling_scan(v, pos, _COMBINE[op])
         if flip:
@@ -173,6 +176,50 @@ def _segmented_scan(vals: torch.Tensor, is_new: torch.Tensor, op: str,
     if narrow:
         out = out.to(logical)
     return dtypes.from_container(out, logical)
+
+
+def _nan_selection(nan: torch.Tensor, start: torch.Tensor,
+                   pos: torch.Tensor, is_min: bool):
+    """For every row, the row of the NaN that float min/max select from
+    its run up to it, and whether there is one: the run's last NaN so far
+    for max, its first for min (``jnp.maximum`` returns the later of two
+    NaNs, ``jnp.minimum`` the earlier)."""
+    mark = nan
+    if is_min:  # only the run's first NaN: one NaN in [start, row]
+        c = torch.cumsum(nan, 0)
+        mark = nan & (c - c[start] + nan[start] == 1)
+    src = last_marked_index(mark | (pos == 0))
+    return src, mark[src]
+
+
+def _number_keys(z: torch.Tensor, is_min: bool):
+    """Float ``z`` → (integer keys whose signed order is the floats' order,
+    -0.0 below +0.0, with NaN rows held out as the identity of min / max;
+    the NaN mask).  :func:`_from_keys` inverts the keys bit for bit."""
+    nan = torch.isnan(z)
+    return dtypes.signed_order(dtypes.to_sortable(
+        torch.where(nan, _type_extreme(z.dtype, is_min), z))), nan
+
+
+def _from_keys(keys: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return dtypes.from_sortable(dtypes.signed_order(keys), dtype)
+
+
+def _float_select_scan(v: torch.Tensor, start: torch.Tensor,
+                       pos: torch.Tensor, op: str) -> torch.Tensor:
+    """Inclusive segmented min/max of floats as selections, with the JAX
+    package's rules on the CPU: each result is one of the inputs, bits
+    included; a NaN wins over any number (the run's last NaN so far for
+    max, its first for min) and -0.0 is below +0.0.  The numbers scan on
+    their sortable image, NaN rows held out as the identity; the NaNs are
+    selected after.  (``torch.maximum`` / ``minimum`` return their first
+    operand of two equal ones, so max(-0.0, +0.0) could be -0.0, and
+    write an all-ones NaN on the CPU.)"""
+    is_min = op == "min"
+    keys, nan = _number_keys(v, is_min)
+    out = _from_keys(_doubling_scan(keys, pos, _COMBINE[op]), v.dtype)
+    src, has_nan = _nan_selection(nan, start, pos, is_min)
+    return torch.where(has_nan, v[src], out)
 
 
 def _sorted_rows(table: Table, key: str, needed_cols, config: SortConfig):
@@ -185,13 +232,16 @@ def _sorted_rows(table: Table, key: str, needed_cols, config: SortConfig):
     stable sort on the key alone gives that order already: the valid rows
     are the Table's prefix, so every real row precedes every padding row
     within the sentinel run, and the valid rows stay the sorted prefix of
-    num_rows rows."""
+    num_rows rows.  The sort runs at the key's width (one pass for a
+    1-byte key), where the sentinel's digits are the width's maximum, as
+    the JAX package's sentinel is in the key's own container."""
     valid_in = table.valid_mask()
     ku = torch.where(valid_in, dtypes.to_sortable(table[key]),
                      dtypes.SENTINEL_BITS)
     names = tuple(sorted(needed_cols))
     ku_sorted, cols = sort_ops.sort_biased_kv(
-        ku, tuple(table[c] for c in names), config)
+        ku, tuple(table[c] for c in names), config,
+        dtypes.key_bits(table[key].dtype))
     return ku_sorted, dict(zip(names, cols)), valid_in
 
 
@@ -306,7 +356,8 @@ def distinct(table: Table, key: str,
                      dtypes.SENTINEL_BITS)
     names = table.column_names
     ku_sorted, cols_sorted = sort_ops.sort_biased_kv(
-        ku, tuple(table.columns[n] for n in names), config)
+        ku, tuple(table.columns[n] for n in names), config,
+        dtypes.key_bits(table[key].dtype))
     true1 = torch.ones(1, dtype=torch.bool, device=table.device)
     is_new = valid & torch.cat([true1, ku_sorted[1:] != ku_sorted[:-1]])
     packed, num_distinct = partition.compact_mask(is_new, cols_sorted,
@@ -344,7 +395,9 @@ def _segment_reduce(op: str, vals, seg: torch.Tensor, num_segments: int,
         fd = _segment_mean_dtype(logical)
         return (_as_float(s, fd, logical)
                 / _as_float(c.clamp_min(1), fd, logical))
-    flip = v.dtype != logical  # uint32/uint64: reduce in unsigned order
+    if v.dtype.is_floating_point:
+        return _segment_select(op, v, seg, num_segments, valid)
+    flip = v.dtype != logical  # uint16/32/64: reduce in unsigned order
     if flip:
         v = dtypes.signed_order(v)
     identity = _type_extreme(v.dtype, op == "min")
@@ -354,6 +407,30 @@ def _segment_reduce(op: str, vals, seg: torch.Tensor, num_segments: int,
         "amin" if op == "min" else "amax")
     return dtypes.from_container(dtypes.signed_order(r) if flip else r,
                                  logical)
+
+
+def _segment_select(op: str, v: torch.Tensor, seg: torch.Tensor,
+                    num_segments: int, valid: torch.Tensor) -> torch.Tensor:
+    """Float segment min/max by the rules of :func:`_float_select_scan`,
+    as ``jax.ops.segment_max/min`` give them on the CPU (a sequential
+    scatter of the rows): the numbers reduce on their sortable image, and
+    a segment holding a NaN takes its last NaN row (max) or its first
+    (min).  Empty segments hold the identity, -inf (max) or +inf (min)."""
+    is_min = op == "min"
+    reduce = "amin" if is_min else "amax"
+    identity = _type_extreme(v.dtype, is_min)
+    z = torch.where(valid, v, identity)
+    keys, nan = _number_keys(z, is_min)
+    out, _ = _number_keys(torch.full((num_segments,), identity,
+                                     dtype=v.dtype, device=v.device), is_min)
+    out = _from_keys(out.scatter_reduce_(0, seg, keys, reduce), v.dtype)
+    n = z.shape[0]
+    none = n if is_min else -1
+    rows = torch.arange(n, device=v.device)
+    nan_row = torch.full((num_segments,), none, dtype=rows.dtype,
+                         device=v.device).scatter_reduce_(
+        0, seg, torch.where(nan, rows, none), reduce)
+    return torch.where(nan_row != none, z[nan_row.clamp(0, n - 1)], out)
 
 
 def _hash_aggregate_segment(table: Table, key: str, aggs, ku_sorted,

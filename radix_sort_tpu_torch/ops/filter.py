@@ -42,8 +42,8 @@ def filter_expr(table: Table, column: str, op: str, value,
     if op not in _COMPARE:
         raise ValueError(f"unknown comparison {op!r}")
     col = table[column]
-    if dtypes.is_unsigned(col.dtype):
-        # uint32/uint64 have no ordered comparisons in torch: compare the
+    if dtypes.container_dtype(col.dtype) != col.dtype:
+        # uint16/32/64 have no ordered comparisons in torch: compare the
         # sign-flipped signed containers, whose signed order is the same.
         bits = dtypes.key_bits(col.dtype)
         v = int(value) & ((1 << bits) - 1)

@@ -13,8 +13,8 @@ Engines:
   - ``merge``: the JAX package's ``pallas_merge`` engine, the tile sort and
     merge levels of ops/cuda_merge.py, for key-only sorts of 32-bit keys
     (u32, i32, f32).  Sorts with a payload (``argsort`` included), 64-bit
-    keys and 16-bit keys run ``radix``, as the JAX engine sends them to
-    ``xla_sort``: a dispatch by shape, not a fallback on failure.
+    keys and 8- and 16-bit keys run ``radix``, as the JAX engine sends
+    them to ``xla_sort``: a dispatch by shape, not a fallback on failure.
   - ``torch_sort``: ``torch.sort(stable=True)``, the speed baseline on the
     same card.  ``auto`` never chooses it.
 
@@ -71,8 +71,8 @@ def sort_biased_kv(keys_bits: torch.Tensor, payloads,
                    total_bits: int | None = None):
     """Engine-dispatched stable sort of sortable key bits (already through
     ``dtypes.to_sortable``) with a tuple of payload tensors.  ``total_bits``
-    is the key width when it is narrower than the container (16-bit keys
-    in int32)."""
+    is the key width when it is narrower than the container (8- and
+    16-bit keys in int32): that many bits of digits are sorted."""
     payloads = tuple(payloads)
     engine = _dispatch_engine(config.engine)
     bits = 8 * keys_bits.element_size() if total_bits is None else total_bits

@@ -153,8 +153,8 @@ def partition_planes(bucket_ids: torch.Tensor, planes_i32, num_buckets: int,
 def payloads_to_planes(payloads):
     """Map 1-D payload tensors to int32 planes: 4-byte dtypes view as one
     plane, 8-byte dtypes split into (lo, hi) word planes, narrower dtypes
-    widen to one plane.  Returns (planes, specs) for
-    :func:`planes_to_payloads`."""
+    widen to one plane (a 2-byte float by its bits).  Returns (planes,
+    specs) for :func:`planes_to_payloads`."""
     planes, specs = [], []
     for p in payloads:
         c = dtypes.as_container(p).contiguous()
@@ -163,6 +163,8 @@ def payloads_to_planes(payloads):
         elif c.dtype.itemsize == 8:
             planes += list(_key_word_planes(c.view(torch.int64)))
         else:
+            if c.dtype.is_floating_point:  # widen the bits, not the value
+                c = c.view(torch.int16)
             planes.append(c.to(torch.int32))
         specs.append((p.dtype, c.dtype))
     return tuple(planes), tuple(specs)
@@ -181,6 +183,8 @@ def planes_to_payloads(planes, specs):
             i += 2
         else:
             c = planes[i].to(container)
+            if dtype.is_floating_point:
+                c = c.view(dtype)
             i += 1
         out.append(dtypes.from_container(c, dtype))
     return tuple(out)

@@ -42,7 +42,7 @@ from .aggregate import _segmented_scan, run_starts
 
 
 def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``x[idx]`` (int64 ``idx``), uint32/uint64 through their containers."""
+    """``x[idx]`` (int64 ``idx``), uint16/32/64 through their containers."""
     return dtypes.from_container(
         torch.index_select(dtypes.as_container(x), 0, idx), x.dtype)
 
@@ -95,8 +95,8 @@ def _shift(x: torch.Tensor, k: int, fill, right: bool) -> torch.Tensor:
 
 def _container_fill(fill, dtype: torch.dtype):
     """``fill`` as a value of the container of ``dtype`` (the bit pattern
-    of an unsigned 32/64-bit fill in its signed container)."""
-    if dtype in (torch.uint32, torch.uint64):
+    of an unsigned 16/32/64-bit fill in its signed container)."""
+    if dtypes.container_dtype(dtype) != dtype:
         width = dtypes.key_bits(dtype)
         v = int(fill) & ((1 << width) - 1)
         return v - (1 << width) if v >> (width - 1) else v

@@ -99,7 +99,8 @@ def _hash_dest_sub(keys: torch.Tensor, num_devices: int, num_sub: int = 1):
     of the sum are kept.  The uint64 product wraps modulo 2^64 in int64
     as it does in uint64.
     ``>>`` on torch ints is arithmetic, so every field is masked after its
-    shift.  16-bit keys come widened from ``to_sortable``."""
+    shift.  1- and 2-byte keys come widened from ``to_sortable``, as the
+    JAX package widens them before the product."""
     u = dtypes.to_sortable(keys)
     if u.element_size() == 8:
         h = u * _GOLDEN64

@@ -92,6 +92,35 @@ def test_dist_hash_aggregate_skew_escalation(port, jax_mesh, G):
     np.testing.assert_array_equal(got["n"][order], np.bincount(inv))
 
 
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("name", ["aggregate_u8", "aggregate_f16"])
+def test_dist_hash_aggregate_narrow_keys(port, jax_mesh, name, G):
+    """1-byte and half-precision group keys (for float16 NaN payloads,
+    +-0.0, +-inf and subnormals, each bit pattern a group of its own),
+    widened before the hash as the JAX package widens them: the groups
+    equal the JAX function's bit for bit, and the numpy oracle's."""
+    keys, vals = R.agg_inputs(name)
+    jres, jover = jops.dist_hash_aggregate(
+        _jtable({"g": keys, "x": vals}), "g",
+        {"n": ("count", None), "s": ("sum", "x")}, mesh=jax_mesh,
+        overlap_chunks=G)
+    assert not bool(jover)
+    got, over = port[0][(name, G)]
+    assert not over
+    want = jres.to_numpy()
+    _same(got, want)
+    np.testing.assert_array_equal(got["g"].view(np.uint8),
+                                  want["g"].view(np.uint8))
+    _same_on_every_rank(port, (name, G))
+    u = f"u{keys.dtype.itemsize}"
+    ub, inv = np.unique(keys.view(u), return_inverse=True)
+    order = np.argsort(got["g"].view(u), kind="stable")
+    np.testing.assert_array_equal(got["g"].view(u)[order], ub)
+    np.testing.assert_array_equal(got["n"][order], np.bincount(inv))
+    np.testing.assert_array_equal(got["s"][order],
+                                  np.bincount(inv, weights=vals))
+
+
 def _check_join(port, jax_mesh, name, G, mult):
     probe, build, brows = R.join_inputs(name)
     jres, jstats = jops.dist_hash_join(

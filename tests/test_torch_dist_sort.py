@@ -44,7 +44,10 @@ def _port_sorted(port, case, G):
     return ks, vs
 
 
-def _check(port, jax_mesh, case, G):
+def _check(port, jax_mesh, case, G, total_order=False):
+    """``total_order``: hold the keys to the stable argsort of their
+    sortable images (NaNs by sign, -0.0 below +0.0), not np.sort's order,
+    which puts every NaN last."""
     keys, vals = R.SORT_INPUTS[case]()
     jk, jv, jover = jds.dist_sort_kv(
         jnp.asarray(keys), None if vals is None else jnp.asarray(vals),
@@ -54,11 +57,17 @@ def _check(port, jax_mesh, case, G):
     assert ks.dtype == keys.dtype
     np.testing.assert_array_equal(ks.view(np.uint8),
                                   np.asarray(jk).view(np.uint8))
-    # by value: numpy's order puts +0.0 and -0.0 as they came
-    np.testing.assert_array_equal(ks, golden.oracle_sort(keys))
+    if total_order:
+        perm = np.argsort(jdt.np_to_sortable_unsigned(keys), kind="stable")
+        np.testing.assert_array_equal(ks.view(np.uint8),
+                                      keys[perm].view(np.uint8))
+    else:
+        # by value: numpy's order puts +0.0 and -0.0 as they came
+        np.testing.assert_array_equal(ks, golden.oracle_sort(keys))
+        perm = golden.oracle_argsort(keys)
     if vals is not None:
         np.testing.assert_array_equal(vs, np.asarray(jv))
-        np.testing.assert_array_equal(vs, golden.oracle_argsort(keys))
+        np.testing.assert_array_equal(vs, perm)
     # the JAX output layout: rank r holds sorted rows [r*per, (r+1)*per)
     per = -(-keys.size // D)
     assert [p[(case, G)][0].size for p in port] == [
@@ -112,6 +121,15 @@ def test_dist_sort_full_range_unsigned_kv(port, jax_mesh, case, G):
     """Keys at and above 2^31 (2^63), ties included: the splitter searches
     run in unsigned order on the signed containers."""
     _check(port, jax_mesh, case, G)
+
+
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("case", ["u8_kv", "f16_kv"])
+def test_dist_sort_narrow_keys_kv(port, jax_mesh, case, G):
+    """1-byte and half-precision keys (NaN payloads, +-0.0, +-inf and
+    subnormals for float16), ties included, sorted at their own width on
+    every rank, bit for bit."""
+    _check(port, jax_mesh, case, G, total_order=True)
 
 
 @pytest.mark.parametrize("G", [1, 2])

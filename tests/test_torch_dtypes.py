@@ -88,8 +88,12 @@ def test_registry_matches_jax():
         assert tdt.type_name(d) == jdt.type_name(d)
         assert tdt.c_name(d) == jdt.c_name(d)
         assert tdt.type_name(tdt.torch_dtype(d)) == jdt.type_name(d)
+    # the registry names the harness's types; keys are accepted by kind and
+    # width (int8 included), and bool is refused as by the JAX transform
     with pytest.raises(TypeError):
-        tdt.to_sortable(torch.zeros(3, dtype=torch.int8))
+        tdt.to_sortable(torch.zeros(3, dtype=torch.bool))
+    with pytest.raises(TypeError):
+        jdt.to_sortable_unsigned(np.zeros(3, dtype=np.bool_))
 
 
 def test_sentinel_is_the_max_unsigned_pattern():

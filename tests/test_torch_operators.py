@@ -251,3 +251,80 @@ def test_hash_join_key_dtype_mismatch_raises():
     _, b = both({"k": np.arange(3, dtype=np.int64)})
     with pytest.raises(ValueError):
         join.hash_join(a, b, "k")
+
+
+# ---- float min/max: selections with the JAX package's NaN and zero rules --
+
+def _float_groups(dtype):
+    """(keys, values, expected min, expected max) of groups [NaN, 1.0],
+    [-0.0, 0.0], [0.0, -0.0], [NaN], [NaN with a payload, 2.0],
+    [1.0, that NaN], [-inf, inf] and [-NaN, 5.0]: each expected result is
+    one of the group's values, bits included (what ``jnp.minimum`` /
+    ``jnp.maximum`` select on the CPU)."""
+    d = np.dtype(dtype)
+    u = np.dtype(f"u{d.itemsize}")
+    q = np.array([np.nan], d)
+    pay = (q.view(u) | u.type(5)).view(d)[0]
+    neg = (q.view(u) | u.type(1 << (8 * d.itemsize - 1))).view(d)[0]
+    q = q[0]
+    groups = [([q, 1.0], q, q), ([-0.0, 0.0], -0.0, 0.0),
+              ([0.0, -0.0], -0.0, 0.0), ([q], q, q), ([pay, 2.0], pay, pay),
+              ([1.0, pay], pay, pay), ([-np.inf, np.inf], -np.inf, np.inf),
+              ([neg, 5.0], neg, neg)]
+    keys = np.concatenate([[i] * len(g) for i, (g, _, _) in
+                           enumerate(groups)]).astype(np.uint32)
+    vals = np.concatenate([np.array(g, d) for g, _, _ in groups])
+    lo = np.array([x for _, x, _ in groups], d)
+    hi = np.array([x for _, _, x in groups], d)
+    return keys, vals, lo, hi
+
+
+def _bits(x):
+    x = np.asarray(x)
+    return x.view(f"u{x.dtype.itemsize}")
+
+
+@pytest.mark.parametrize("method", ["scan", "segment"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["f32", "f64"])
+def test_float_min_max_select_jax_bits(dtype, method):
+    """min/max over NaN, +-0.0 and +-inf keep the input's bits under both
+    methods: the quiet NaN 0x7fc00000 (not torch's all-ones NaN), a NaN's
+    payload and sign, +0.0 for max(-0.0, +0.0) and -0.0 for the min.  The
+    JAX package gives the same bits, with one exception stated here: its
+    scan method moves values through ``jax.lax.associative_scan``, whose
+    interleave adds zero padding, so its min of a group of zeros is +0.0;
+    its segment method gives -0.0, as the port's two methods do."""
+    keys, vals, lo, hi = _float_groups(dtype)
+    jt, tt = both({"k": keys, "v": vals})
+    aggs = {"lo": ("min", "v"), "hi": ("max", "v")}
+    got = aggregate.hash_aggregate(tt, "k", aggs, method=method).to_numpy()
+    want = jx(lambda t: jagg.hash_aggregate(t, "k", aggs, method=method),
+              jt).to_numpy()
+    np.testing.assert_array_equal(_bits(got["lo"]), _bits(lo))
+    np.testing.assert_array_equal(_bits(got["hi"]), _bits(hi))
+    jax_lo = lo.copy()
+    if method == "scan":
+        jax_lo[jax_lo == 0] = 0  # -0.0 -> +0.0 through the JAX scan
+    np.testing.assert_array_equal(_bits(want["lo"]), _bits(jax_lo))
+    np.testing.assert_array_equal(_bits(want["hi"]), _bits(hi))
+    if dtype == np.float32:
+        assert _bits(got["lo"])[0] == 0x7FC00000
+
+
+@pytest.mark.parametrize("method", ["scan", "segment"])
+def test_nan_computed_by_sum_and_mean_may_differ_in_sign(method):
+    """The deliberate exception to bit parity: a NaN that ``sum`` or
+    ``mean`` computes (here inf + -inf) is arithmetic, not a selection,
+    and its bits are the platform's default NaN, whose sign bit the two
+    packages need not share.  Both must give a NaN."""
+    keys = np.array([0, 0, 1, 1], np.uint32)
+    vals = np.array([np.inf, -np.inf, 1.0, 2.0], np.float32)
+    jt, tt = both({"k": keys, "v": vals})
+    aggs = {"s": ("sum", "v"), "m": ("mean", "v")}
+    got = aggregate.hash_aggregate(tt, "k", aggs, method=method).to_numpy()
+    want = jx(lambda t: jagg.hash_aggregate(t, "k", aggs, method=method),
+              jt).to_numpy()
+    for k in aggs:
+        assert np.isnan(got[k][0]) and np.isnan(want[k][0])
+        np.testing.assert_array_equal(got[k][1:], want[k][1:])

@@ -478,3 +478,78 @@ def test_cuda_segment_aggregate_matches_cpu(cuda_device):
             np.testing.assert_allclose(got[k], want[k], rtol=1e-5)
         else:
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+# ---- float cum_min / cum_max: selections -----------------------------------
+
+def _zero_nan_partitions(dtype):
+    """Partitions [NaN, 1.0], [-0.0, 0.0], [0.0, -0.0], [NaN], [NaN with a
+    payload, 2.0] and [NaN, the payload NaN, 1.0, -NaN], in input order
+    (one order key a row), and the running min and max as selections of
+    their inputs, bits included: of two NaNs, max keeps the later and min
+    the earlier, as ``jnp.maximum`` / ``jnp.minimum`` do."""
+    d = np.dtype(dtype)
+    u = np.dtype(f"u{d.itemsize}")
+    q = np.array([np.nan], d)
+    pay = (q.view(u) | u.type(5)).view(d)[0]
+    neg = (q.view(u) | u.type(1 << (8 * d.itemsize - 1))).view(d)[0]
+    q = q[0]
+    part = np.array([0, 0, 1, 1, 2, 2, 3, 4, 4, 5, 5, 5, 5], np.int32)
+    vals = np.array([q, 1.0, -0.0, 0.0, 0.0, -0.0, q, pay, 2.0,
+                     q, pay, 1.0, neg], d)
+    mn = np.array([q, q, -0.0, -0.0, 0.0, -0.0, q, pay, pay, q, q, q, q], d)
+    mx = np.array([q, q, -0.0, 0.0, 0.0, 0.0, q, pay, pay,
+                   q, pay, pay, neg], d)
+    return part, vals, mn, mx
+
+
+def _bits(x):
+    x = np.asarray(x)
+    return x.view(f"u{x.dtype.itemsize}")
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["f32", "f64"])
+def test_cum_min_max_select_jax_bits(dtype):
+    """cum_min / cum_max over NaN, +-0.0 and NaN payloads keep the
+    input's bits: the quiet NaN 0x7fc00000, the payload, +0.0 for
+    max(-0.0, +0.0), -0.0 for the min.  The JAX package's results are
+    these with one exception stated here: ``jax.lax.associative_scan``
+    adds the zero padding of its interleave, so every -0.0 it carries
+    comes out +0.0."""
+    part, vals, mn, mx = _zero_nan_partitions(dtype)
+    order = np.arange(part.size, dtype=np.int32)
+    specs = {"mn": ("cum_min", "v"), "mx": ("cum_max", "v")}
+    got = twindow(part, order, specs, {"v": vals})
+    want = jwindow(part, order, specs, {"v": vals})
+    for name, sel in (("mn", mn), ("mx", mx)):
+        np.testing.assert_array_equal(_bits(got[name]), _bits(sel), name)
+        jax_sel = sel.copy()
+        jax_sel[jax_sel == 0] = 0  # -0.0 -> +0.0 through the JAX scan
+        np.testing.assert_array_equal(_bits(want[name]), _bits(jax_sel),
+                                      name)
+    if dtype == np.float32:
+        assert _bits(got["mx"])[0] == 0x7FC00000
+        assert _bits(got["mx"])[3] == 0 and _bits(got["mn"])[3] == 0x80000000
+
+
+@pytest.mark.cuda
+def test_cuda_float_min_max_select_matches_cpu(cuda_device):
+    """The selections on the card: cum_min / cum_max and both aggregate
+    methods over the same NaN / +-0.0 rows equal the CPU's bits (the
+    card's arithmetic never makes these values: they are selected)."""
+    part, vals, _, _ = _zero_nan_partitions(np.float32)
+    order = np.arange(part.size, dtype=np.int32)
+    specs = {"mn": ("cum_min", "v"), "mx": ("cum_max", "v")}
+    got = twindow(part, order, specs, {"v": vals}, device=cuda_device)
+    want = twindow(part, order, specs, {"v": vals})
+    for name in specs:
+        np.testing.assert_array_equal(_bits(got[name]), _bits(want[name]))
+    aggs = {"lo": ("min", "v"), "hi": ("max", "v")}
+    for method in ("scan", "segment"):
+        res = [aggregate.hash_aggregate(
+            Table({"k": _t(part, dev), "v": _t(vals, dev)}), "k", aggs,
+            method=method).to_numpy() for dev in (cuda_device, "cpu")]
+        for name in aggs:
+            np.testing.assert_array_equal(_bits(res[0][name]),
+                                          _bits(res[1][name]))

@@ -90,7 +90,27 @@ SORT_INPUTS = {
     "u64_full_kv": lambda: (_u64_tied_keys(), np.arange(3001, dtype=np.int32)),
     "tiny": lambda: (np.array([5, 1, 3], dtype=np.uint32),
                      np.arange(3, dtype=np.int32)),
+    "u8_kv": lambda: (_narrow_keys(np.uint8), np.arange(3001, dtype=np.int32)),
+    "f16_kv": lambda: (_narrow_keys(np.float16),
+                       np.arange(3001, dtype=np.int32)),
 }
+
+
+def _narrow_keys(dtype, n=3001, seed=23):
+    """1- and 2-byte keys over every bit pattern (NaN payloads for
+    float16), ties included, the dtype's extremes (+-inf, +-0.0 and
+    subnormals for float16) planted."""
+    d = np.dtype(dtype)
+    rng = np.random.default_rng(seed)
+    k = rng.integers(0, 1 << (8 * d.itemsize), n).astype(
+        f"u{d.itemsize}").view(d)
+    k[500:900] = k[7]
+    if d.kind == "f":
+        sub = np.finfo(d).smallest_subnormal
+        k[:7] = [np.inf, -np.inf, 0.0, -0.0, sub, -sub, np.nan]
+    else:
+        k[:2] = [np.iinfo(d).min, np.iinfo(d).max]
+    return k
 
 
 def _f32_keys():
@@ -115,7 +135,8 @@ SORT_CASES = ([(f"dist_{n}", g) for n in ("Zeros", "RandomDistributed",
               + [(c, g) for c in ("kv_stable", "non_divisible", "u32_full_kv",
                                   "u64_full_kv", "tiny") for g in (1, 2)]
               + [("i64", 2), ("f32", 2), ("zipf", 2), ("overlap_Zeros", 4),
-                 ("overlap_RandomDistributed", 4), ("overlap_kv", 2)])
+                 ("overlap_RandomDistributed", 4), ("overlap_kv", 2)]
+              + [(c, g) for c in ("u8_kv", "f16_kv") for g in (1, 2)])
 
 
 def inputs_assign(dtype, G):
@@ -143,6 +164,12 @@ def agg_inputs(name):
         rng = np.random.default_rng(5)
         return (rng.integers(0, 40, size=2048).astype(np.uint32),
                 rng.integers(-50, 50, size=2048).astype(np.int32))
+    if name in ("aggregate_u8", "aggregate_f16"):
+        dtype = np.uint8 if name == "aggregate_u8" else np.float16
+        keys = _narrow_keys(dtype, n=2048, seed=29)
+        keys[1000:] = keys[:1048]  # every key in a group of two or more
+        return keys, np.random.default_rng(6).integers(
+            -50, 50, size=2048).astype(np.int32)
     rng = np.random.default_rng(11)  # skew: 3 groups on 4 ranks
     return (rng.integers(0, 3, size=2048).astype(np.uint32),
             np.ones(2048, np.int32))
@@ -341,7 +368,8 @@ def _sort_cases(mesh):
 def _ops_cases(mesh):
     out = {}
     for G in (1, 2):
-        for name in ("aggregate", "aggregate_skew"):
+        for name in ("aggregate", "aggregate_skew", "aggregate_u8",
+                     "aggregate_f16"):
             keys, vals = agg_inputs(name)
             res, ovf = dist_ops.dist_hash_aggregate(
                 _table({"g": keys, "x": vals}, None, mesh), "g",
