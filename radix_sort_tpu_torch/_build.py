@@ -38,13 +38,13 @@ _SIGNATURES = {
     "rst_scan_scratch_bytes": ([_LL], _LL),
     "rst_digit_histogram": ([_P, _LL, _I, _I, _I, _I, _P, _LL, _LL, _P], _I),
     "rst_exclusive_scan": ([_P, _LL, _P, _P, _LL, _P], _I),
-    "rst_rank_scatter": ([_P, _LL, _I, _I, _I, _I, _P,
+    "rst_rank_scatter": ([_P, _LL, _I, _I, _I, _I, _I, _I, _P,
                           ctypes.POINTER(_P), ctypes.POINTER(_P), _I, _P, _P],
                          _I),
-    "rst_pass_histograms": ([_P, _I, _P, _I, _LL, _I, _P, _P], _I),
+    "rst_pass_histograms": ([_P, _I, _P, _I, _LL, _I, _I, _I, _P, _P], _I),
     "rst_onesweep_scratch_bytes": ([_LL, _I, _I], _LL),
     "rst_zero": ([_P, _LL, _P], _I),
-    "rst_onesweep_pass": ([_P, _LL, _I, _I, _I, _I, _P, _P, _LL,
+    "rst_onesweep_pass": ([_P, _LL, _I, _I, _I, _I, _I, _I, _P, _P, _LL,
                            ctypes.POINTER(_P), ctypes.POINTER(_P), _I, _P, _P,
                            _P], _I),
     "rst_merge_tile": ([], _I),

@@ -28,6 +28,12 @@
 // Tiles are masked at the ragged end inside the kernels: no input is padded.
 // Element counts must stay below 2^31 (destinations are int32); the wrappers
 // check that.
+//
+// The key plane of pass_histograms and rank_scatter (the digit source) is an
+// int32 word plane, whose digit is taken from its bits as they are, or the
+// caller's own 1- or 2-byte keys.  A narrow key's digit is taken from its
+// sortable image, computed in registers (KeyKind), and the pass moves the
+// caller's bits, so no widened or transformed key plane is ever written.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -41,6 +47,76 @@ struct Planes {
   const int32_t* in[kMaxPlanes];
   int32_t* out[kMaxPlanes];
 };
+
+// The image of a narrow key, the bits whose unsigned order is the key
+// order: key ^ pos where the key's top bit is clear, key ^ neg where it is
+// set.  Unsigned keys: (0, 0); signed: the sign bit both ways; floats: the
+// sign bit, and every bit of a negative.
+struct KeyKind {
+  unsigned pos;
+  unsigned neg;
+};
+
+// The element type of a key plane of KB bytes.
+template <int KB>
+struct KeyWord;
+template <>
+struct KeyWord<1> {
+  using T = unsigned char;
+};
+template <>
+struct KeyWord<2> {
+  using T = unsigned short;
+};
+template <>
+struct KeyWord<4> {
+  using T = int32_t;
+};
+
+// The bits of a KB-byte key within a 32-bit word.
+template <int KB>
+constexpr unsigned kKeyMask = (KB == 4 ? 0u : 1u << (8 * KB % 32)) - 1u;
+
+// raw: a KB-byte key, zero-extended.  An int32 word is its own image.
+template <int KB>
+__device__ __forceinline__ unsigned key_image(unsigned raw, KeyKind kk) {
+  if constexpr (KB == 4) {
+    return raw;
+  } else {
+    return raw ^ ((raw >> (8 * KB - 1)) ? kk.neg : kk.pos);
+  }
+}
+
+template <int KB>
+__device__ __forceinline__ unsigned key_unimage(unsigned img, KeyKind kk) {
+  if constexpr (KB == 4) {
+    return img;
+  } else {
+    return img ^ ((img >> (8 * KB - 1)) ? kk.pos : kk.neg);
+  }
+}
+
+// kind: 0 unsigned, 1 signed, 2 float; an int32 word plane is unsigned.
+bool key_kind(int key_bytes, int kind, KeyKind* kk) {
+  if (key_bytes == 4) {
+    *kk = {0u, 0u};
+    return kind == 0;
+  }
+  if (key_bytes != 1 && key_bytes != 2) return false;
+  const unsigned sign = 1u << (8 * key_bytes - 1);
+  switch (kind) {
+    case 0:
+      *kk = {0u, 0u};
+      return true;
+    case 1:
+      *kk = {sign, sign};
+      return true;
+    case 2:
+      *kk = {sign, 2u * sign - 1u};
+      return true;
+  }
+  return false;
+}
 
 // ------------------------------------------------------------ histogram
 //
@@ -338,6 +414,9 @@ long long scan_tiles(long long n, int lead) {
 //     which random digits spread over R addresses.
 //   - Elements before the first 16-byte boundary and after the last whole
 //     vector (at most six) are counted element by element by CTA 0.
+//   - A narrow key plane (one plane, the caller's 1- or 2-byte keys) is
+//     read at its own width: each 16-byte vector holds 16 or 8 keys, each
+//     unpacked and taken to its image in registers.
 constexpr int kHistThreads = 512;
 constexpr int kHistWarps = kHistThreads / 32;
 constexpr int kHistCopies = 8;
@@ -346,10 +425,25 @@ constexpr int kHistUnroll = 2;       // 16-byte vectors a lane loads at once
 constexpr int kHistMaxPlanes = 2;
 
 struct HistPlanes {
-  const int32_t* x[kHistMaxPlanes];
+  const void* x[kHistMaxPlanes];
   int passes[kHistMaxPlanes];
   int row0[kHistMaxPlanes];
 };
+
+// The K = 16 / KB keys of a 16-byte vector of a narrow plane, as images.
+template <int KB>
+__device__ __forceinline__ void unpack16(int4 q, KeyKind kk,
+                                         unsigned (&v)[16 / KB]) {
+  constexpr int kPer = 4 / KB;  // keys a 32-bit word
+  const unsigned w[4] = {(unsigned)q.x, (unsigned)q.y, (unsigned)q.z,
+                         (unsigned)q.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int b = 0; b < kPer; ++b)
+      v[i * kPer + b] =
+          key_image<KB>((w[i] >> (8 * KB * b)) & kKeyMask<KB>, kk);
+}
 
 __device__ __forceinline__ void hist_add4(int* h, int4 q, bool ok,
                                           unsigned valid, int passes,
@@ -375,13 +469,41 @@ __device__ __forceinline__ void hist_add4(int* h, int4 q, bool ok,
   }
 }
 
-// grid: (CTAs a plane, planes).  out: zeroed (P, R) table.
+// hist_add4 for the K keys (images) a lane unpacked from a narrow plane's
+// 16-byte vector.
+template <int K>
+__device__ __forceinline__ void hist_add(int* h, const unsigned (&v)[K],
+                                         bool ok, unsigned valid, int passes,
+                                         int bits, int lane) {
+  const unsigned mask = (1u << bits) - 1u;
+  for (int p = 0; p < passes; ++p) {
+    const int s = p * bits;
+    int* row = h + (p << bits);
+    // lane 0 is valid
+    const unsigned ref = __shfl_sync(0xFFFFFFFFu, (v[0] >> s) & mask, 0);
+    bool same = true;
+#pragma unroll
+    for (int k = 0; k < K; ++k) same &= ((v[k] >> s) & mask) == ref;
+    if (__all_sync(0xFFFFFFFFu, !ok || same)) {
+      if (lane == 0) atomicAdd(&row[ref], K * __popc(valid));
+    } else if (ok) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) atomicAdd(&row[(v[k] >> s) & mask], 1);
+    }
+  }
+}
+
+// grid: (CTAs a plane, planes).  out: zeroed (P, R) table.  KB: the bytes
+// of a key of every plane.
+template <int KB>
 __global__ void __launch_bounds__(kHistThreads)
-pass_histograms_kernel(HistPlanes hp, int64_t n, int bits,
+pass_histograms_kernel(HistPlanes hp, int64_t n, int bits, KeyKind kk,
                        int32_t* __restrict__ out) {
+  using K = typename KeyWord<KB>::T;
+  constexpr int kPer = 16 / KB;  // keys a 16-byte vector
   __shared__ int hist[kHistCopies * kHistMaxCells];
   const int plane = blockIdx.y;
-  const int32_t* x = hp.x[plane];
+  const K* x = static_cast<const K*>(hp.x[plane]);
   const int passes = hp.passes[plane];
   const int cells = passes << bits;
   const int tid = threadIdx.x;
@@ -391,10 +513,10 @@ pass_histograms_kernel(HistPlanes hp, int64_t n, int bits,
   __syncthreads();
   int* h = hist + (warp % kHistCopies) * cells;
 
-  // [0, head) and [head + 4 * nvec, n) go element by element
-  const int64_t lead = (int64_t)((16u - ((uintptr_t)x & 15u)) & 15u) / 4;
+  // [0, head) and [head + kPer * nvec, n) go element by element
+  const int64_t lead = (int64_t)((16u - ((uintptr_t)x & 15u)) & 15u) / KB;
   const int64_t head = lead < n ? lead : n;
-  const int64_t nvec = (n - head) / 4;
+  const int64_t nvec = (n - head) / kPer;
   const int4* x4 = reinterpret_cast<const int4*>(x + head);
   constexpr int64_t kWarpVecs = 32 * kHistUnroll;
   const int64_t step = (int64_t)gridDim.x * kHistWarps * kWarpVecs;
@@ -412,15 +534,22 @@ pass_histograms_kernel(HistPlanes hp, int64_t n, int bits,
     for (int u = 0; u < kHistUnroll; ++u) {
       const unsigned valid = __ballot_sync(0xFFFFFFFFu, ok[u]);
       if (valid == 0) break;  // the valid lanes are a prefix of the warp
-      hist_add4(h, q[u], ok[u], valid, passes, bits, lane);
+      if constexpr (KB == 4) {
+        hist_add4(h, q[u], ok[u], valid, passes, bits, lane);
+      } else {
+        unsigned v[kPer];
+        unpack16<KB>(q[u], kk, v);
+        hist_add<kPer>(h, v, ok[u], valid, passes, bits, lane);
+      }
     }
   }
   if (blockIdx.x == 0) {
     const unsigned mask = (1u << bits) - 1u;
-    const int64_t tail = head + 4 * nvec;
+    const int64_t tail = head + kPer * nvec;
     const int64_t rest = head + (n - tail);
     for (int64_t k = tid; k < rest; k += kHistThreads) {
-      const unsigned v = (unsigned)x[k < head ? k : tail + (k - head)];
+      const unsigned v = key_image<KB>(
+          (unsigned)x[k < head ? k : tail + (k - head)], kk);
       for (int p = 0; p < passes; ++p)
         atomicAdd(&h[(p << bits) + ((v >> (p * bits)) & mask)], 1);
     }
@@ -494,6 +623,24 @@ pass_histograms_kernel(HistPlanes hp, int64_t n, int bits,
 //     u32 KV pass at 2^27: scripts/onesweep_probe.py).  4096-element
 //     tiles keep three CTAs of 256 threads an SM in <= 85 registers; a
 //     fourth (64 registers) was slower.
+//   - A narrow key plane (KB = 1 or 2 bytes, the caller's own keys) is
+//     read and moved at its own width, so a u8 KV pass moves 10 bytes an
+//     element where a widened one moved 16 (f16: 12).  In a whole tile a
+//     lane loads one 32-bit word, 4 or 2 consecutive keys, so a warp reads
+//     128 consecutive bytes; shuffles then hand lane l of round r the key
+//     of element r * 32 + l, the order the in-warp ranking is stable in,
+//     and the key goes to its image in registers.  The ragged tile and a
+//     plane that does not start on a 4-byte boundary load key by key.  The
+//     key plane is staged through the tile's space at its own width and
+//     written back as the caller's bits; payload planes stay int32.
+//   - Registers, not shared memory, hold an 8192-key tile to two CTAs an
+//     SM: three CTAs' 68 KB each fit the SM's 228 KB, but 32 keys and 32
+//     slots a thread take 128 registers.  A narrow key keeps its images
+//     4 or 2 to a register and its slots 2 to a register (a slot is below
+//     2^16), and moves into the staging tile as its slot is found, so it
+//     is not live in the scatter; its kernels run three CTAs of 8192 an
+//     SM.  (The staging tile's shared memory stays 4 bytes a key: the
+//     int32 payload is staged there.)
 template <typename Word>
 struct StatusWord;
 
@@ -567,21 +714,35 @@ struct RankShared {
   unsigned char sdigit[kTile];
 };
 
-// CTAs an SM the register budget is set for.
-constexpr int rank_ctas(int threads, int items) {
-  return threads >= 256 ? (items >= 32 ? 2 : 3) : 4;
+// CTAs an SM the register budget is set for: a narrow key plane packs its
+// keys and slots, so 8192 of them fit three CTAs an SM.
+constexpr int rank_ctas(int threads, int items, int key_bytes) {
+  return threads >= 256 ? (items >= 32 && key_bytes == 4 ? 2 : 3) : 4;
 }
 
-template <int THREADS, int ITEMS, bool LOOKBACK, typename Word>
-__global__ void __launch_bounds__(THREADS, rank_ctas(THREADS, ITEMS))
-rank_scatter_kernel(const int32_t* __restrict__ digsrc, int64_t n, int shift,
-                    int bits, const int32_t* __restrict__ base,
+// Round r's key image from the packed registers of step 1.
+template <int KB, int N>
+__device__ __forceinline__ unsigned packed_key(const unsigned (&kw)[N],
+                                               int r) {
+  constexpr int kPer = 4 / KB;
+  return (kw[r / kPer] >> (8 * KB * (r % kPer))) & kKeyMask<KB>;
+}
+
+// KB: the bytes of a key of the digit source (1, 2 or 4).
+template <int THREADS, int ITEMS, bool LOOKBACK, typename Word, int KB>
+__global__ void __launch_bounds__(THREADS, rank_ctas(THREADS, ITEMS, KB))
+rank_scatter_kernel(const void* __restrict__ digit_plane, int64_t n,
+                    int shift, int bits, KeyKind kk,
+                    const int32_t* __restrict__ base,
                     LookBack lb, int64_t nblocks, Planes planes,
                     int nplanes, int32_t* __restrict__ dest_out) {
+  using K = typename KeyWord<KB>::T;
   constexpr int kWarps = THREADS / 32;
   constexpr int kTile = THREADS * ITEMS;
   constexpr int kChunks = kMaxRadix / 32;
   static_assert(kTile >= kWarps * kMaxRadix, "the lane masks live in sval");
+  static_assert(ITEMS % (4 / KB) == 0, "a round of words fills whole rounds");
+  const K* digsrc = static_cast<const K*>(digit_plane);
   extern __shared__ __align__(16) unsigned char smem[];
   auto& sh = *reinterpret_cast<RankShared<THREADS, ITEMS>*>(smem);
   int* warp_row = sh.warp_row;
@@ -612,13 +773,49 @@ rank_scatter_kernel(const int32_t* __restrict__ digsrc, int64_t n, int shift,
   const int64_t tile_start = t * kTile;
   const int count = (int)(n - tile_start < kTile ? n - tile_start : kTile);
 
-  // 1. the warp's 32 * ITEMS consecutive keys, a coalesced round at a time
+  // 1. the warp's 32 * ITEMS consecutive keys, a coalesced round at a
+  //    time.  A narrow key is kept as its image, kPer to a register (round
+  //    r in bits 8 * KB * (r % kPer) of kw[r / kPer]), and its slot below
+  //    in a 16-bit half: registers that let three CTAs of 8192 keys share
+  //    an SM.
+  constexpr int kPer = 4 / KB;
+  constexpr int kSlotPer = KB == 4 ? 1 : 2;
   const int first = warp * 32 * ITEMS + lane;
-  int32_t key[ITEMS];
+  unsigned kw[ITEMS / kPer];
+  if constexpr (KB == 4) {
 #pragma unroll
-  for (int r = 0; r < ITEMS; ++r) {
-    const int li = first + r * 32;
-    key[r] = li < count ? digsrc[tile_start + li] : 0;
+    for (int r = 0; r < ITEMS; ++r) {
+      const int li = first + r * 32;
+      kw[r] = li < count ? (unsigned)digsrc[tile_start + li] : 0u;
+    }
+  } else if (count == kTile && ((uintptr_t)digsrc & 3u) == 0) {
+    // a word of kPer keys a lane; round r takes element r * 32 + lane from
+    // lane (r % kPer) * 32 / kPer + lane / kPer of load r / kPer
+    const unsigned* w = reinterpret_cast<const unsigned*>(
+        digsrc + tile_start + warp * 32 * ITEMS);
+    const int at = (lane % kPer) * 8 * KB;
+#pragma unroll
+    for (int q = 0; q < ITEMS / kPer; ++q) {
+      const unsigned word = w[q * 32 + lane];
+      kw[q] = 0u;
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const unsigned src =
+            __shfl_sync(0xFFFFFFFFu, word, j * (32 / kPer) + lane / kPer);
+        kw[q] |= key_image<KB>((src >> at) & kKeyMask<KB>, kk)
+                 << (8 * KB * j);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < ITEMS / kPer; ++q) kw[q] = 0u;
+#pragma unroll
+    for (int r = 0; r < ITEMS; ++r) {
+      const int li = first + r * 32;
+      if (li < count)
+        kw[r / kPer] |= key_image<KB>(digsrc[tile_start + li], kk)
+                        << (8 * KB * (r % kPer));
+    }
   }
 
   // 2. in-warp stable ranks into the warp's own counter row
@@ -626,11 +823,11 @@ rank_scatter_kernel(const int32_t* __restrict__ digsrc, int64_t n, int shift,
   // the lanes of each digit, one bit a lane, in the staging tile's space
   unsigned* mask = reinterpret_cast<unsigned*>(sval) + warp * radix;
   const unsigned lower_lanes = (1u << lane) - 1u;
-  int slot[ITEMS];
+  int slot[ITEMS / kSlotPer];
 #pragma unroll
   for (int r = 0; r < ITEMS; ++r) {
     const bool valid = first + r * 32 < count;
-    const unsigned d = ((unsigned)key[r] >> shift) & dmask;
+    const unsigned d = (packed_key<KB>(kw, r) >> shift) & dmask;
     // a round whose lanes share one digit (sorted or constant keys) skips
     // the lane masks, on which all 32 lanes would contend; the valid lanes
     // are a prefix of the warp, so lane 0 is one of them.  (Every lane
@@ -654,7 +851,11 @@ rank_scatter_kernel(const int32_t* __restrict__ digsrc, int64_t n, int shift,
       if (!uniform) *m = 0u;
     }
     __syncwarp();
-    slot[r] = before + below;
+    if constexpr (kSlotPer == 1)
+      slot[r] = before + below;
+    else  // a slot is below kTile <= 2^16
+      slot[r / 2] = r % 2 ? slot[r / 2] | (before + below) << 16
+                          : before + below;
   }
   __syncthreads();
 
@@ -744,30 +945,60 @@ rank_scatter_kernel(const int32_t* __restrict__ digsrc, int64_t n, int shift,
   }
   __syncthreads();
 
-  // 5. every element's slot in the digit-sorted tile
+  // 5. every element's slot in the digit-sorted tile; a narrow key plane
+  //    that moves is staged here at its own width, as the caller's bits
+  bool key_moved = false;
+  if constexpr (KB < 4)
+    for (int p = 0; p < nplanes; ++p)
+      key_moved |= (const void*)planes.in[p] == digit_plane;
+  K* skey = reinterpret_cast<K*>(sval);
 #pragma unroll
   for (int r = 0; r < ITEMS; ++r) {
     const int li = first + r * 32;
     if (li < count) {
-      const unsigned d = ((unsigned)key[r] >> shift) & dmask;
-      const int s = local_start[d] + warp_row[warp * radix + d] + slot[r];
-      slot[r] = s;
+      const unsigned k = packed_key<KB>(kw, r);
+      const unsigned d = (k >> shift) & dmask;
+      int below;
+      if constexpr (kSlotPer == 1)
+        below = slot[r];
+      else
+        below = (int)(((unsigned)slot[r / 2] >> (16 * (r % 2))) & 0xFFFFu);
+      const int s = local_start[d] + warp_row[warp * radix + d] + below;
+      if constexpr (kSlotPer == 1) slot[r] = s;
       sslot[li] = (unsigned short)s;
       sdigit[s] = (unsigned char)d;
+      if constexpr (KB < 4)
+        if (key_moved) skey[s] = (K)key_unimage<KB>(k, kk);
       if (dest_out != nullptr) dest_out[tile_start + li] = gofs[d] + s;
     }
   }
   __syncthreads();
 
-  // 6. per plane: stage in slot order, then write each digit's run
+  // 6. per plane: stage in slot order, then write each digit's run (the
+  //    narrow key plane, staged already, first)
+  if constexpr (KB < 4) {
+    if (key_moved) {
+      for (int p = 0; p < nplanes; ++p) {
+        if ((const void*)planes.in[p] != digit_plane) continue;
+        K* kout = reinterpret_cast<K*>(planes.out[p]);
+        for (int i = tid; i < count; i += THREADS)
+          kout[gofs[sdigit[i]] + i] = skey[i];
+      }
+      __syncthreads();
+    }
+  }
   const bool whole = count == kTile;
   for (int p = 0; p < nplanes; ++p) {
     const int32_t* in = planes.in[p];
     int32_t* out = planes.out[p];
-    if (in == digsrc) {
+    if ((const void*)in == digit_plane) {
+      if constexpr (KB < 4) {
+        continue;
+      } else {
 #pragma unroll
-      for (int r = 0; r < ITEMS; ++r)
-        if (first + r * 32 < count) sval[slot[r]] = key[r];
+        for (int r = 0; r < ITEMS; ++r)
+          if (first + r * 32 < count) sval[slot[r]] = (int32_t)kw[r];
+      }
     } else if (whole && ((uintptr_t)in & 15u) == 0) {
       constexpr int kVecs = ITEMS / 4;  // 16-byte chunks a thread
       const int4* in4 = reinterpret_cast<const int4*>(in + tile_start);
@@ -794,39 +1025,68 @@ rank_scatter_kernel(const int32_t* __restrict__ digsrc, int64_t n, int shift,
   }
 }
 
-template <int THREADS, int ITEMS, bool LOOKBACK, typename Word>
-void launch_rank_scatter(const int32_t* digsrc, int64_t n, int shift,
-                         int bits, const int32_t* base, const LookBack& lb,
-                         int64_t nblocks, const Planes& planes, int nplanes,
-                         int32_t* dest, cudaStream_t stream) {
+// The arguments of one rank_scatter launch.
+struct PassArgs {
+  const void* digsrc;
+  int64_t n;
+  int shift;
+  int bits;
+  KeyKind kk;
+  const int32_t* base;
+  LookBack lb;
+  int64_t nblocks;
+  Planes planes;
+  int nplanes;
+  int32_t* dest;
+};
+
+template <int THREADS, int ITEMS, bool LOOKBACK, typename Word, int KB>
+void launch_rank_scatter(const PassArgs& a, cudaStream_t stream) {
   constexpr int kBytes = sizeof(RankShared<THREADS, ITEMS>);
-  auto kernel = rank_scatter_kernel<THREADS, ITEMS, LOOKBACK, Word>;
+  auto kernel = rank_scatter_kernel<THREADS, ITEMS, LOOKBACK, Word, KB>;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        kBytes);
-  kernel<<<(unsigned)nblocks, THREADS, kBytes, stream>>>(
-      digsrc, n, shift, bits, base, lb, nblocks, planes, nplanes, dest);
+  if constexpr (KB < 4)  // room for rank_ctas CTAs an SM
+    cudaFuncSetAttribute(kernel,
+                         cudaFuncAttributePreferredSharedMemoryCarveout,
+                         cudaSharedmemCarveoutMaxShared);
+  kernel<<<(unsigned)a.nblocks, THREADS, kBytes, stream>>>(
+      a.digsrc, a.n, a.shift, a.bits, a.kk, a.base, a.lb, a.nblocks,
+      a.planes, a.nplanes, a.dest);
 }
 
 // Dispatch on the tile shape; false if (tile, threads) is not compiled.
-template <bool LOOKBACK, typename Word>
-bool rank_scatter_shape(int tile, int threads, const int32_t* digsrc,
-                        int64_t n, int shift, int bits, const int32_t* base,
-                        const LookBack& lb, int64_t nblocks,
-                        const Planes& planes, int nplanes, int32_t* dest,
+template <bool LOOKBACK, typename Word, int KB>
+bool rank_scatter_shape(int tile, int threads, const PassArgs& a,
                         cudaStream_t s) {
   if (threads == 256 && tile == 8192)
-    launch_rank_scatter<256, 32, LOOKBACK, Word>(digsrc, n, shift, bits, base, lb, nblocks, planes, nplanes, dest, s);
+    launch_rank_scatter<256, 32, LOOKBACK, Word, KB>(a, s);
   else if (threads == 256 && tile == 4096)
-    launch_rank_scatter<256, 16, LOOKBACK, Word>(digsrc, n, shift, bits, base, lb, nblocks, planes, nplanes, dest, s);
+    launch_rank_scatter<256, 16, LOOKBACK, Word, KB>(a, s);
   else if (threads == 256 && tile == 2048)
-    launch_rank_scatter<256, 8, LOOKBACK, Word>(digsrc, n, shift, bits, base, lb, nblocks, planes, nplanes, dest, s);
+    launch_rank_scatter<256, 8, LOOKBACK, Word, KB>(a, s);
   else if (threads == 128 && tile == 4096)
-    launch_rank_scatter<128, 32, LOOKBACK, Word>(digsrc, n, shift, bits, base, lb, nblocks, planes, nplanes, dest, s);
+    launch_rank_scatter<128, 32, LOOKBACK, Word, KB>(a, s);
   else if (threads == 128 && tile == 2048)
-    launch_rank_scatter<128, 16, LOOKBACK, Word>(digsrc, n, shift, bits, base, lb, nblocks, planes, nplanes, dest, s);
+    launch_rank_scatter<128, 16, LOOKBACK, Word, KB>(a, s);
   else
     return false;
   return true;
+}
+
+// Dispatch on the bytes of a key of the digit source; false if not 1, 2, 4.
+template <bool LOOKBACK, typename Word>
+bool rank_scatter_launch(int key_bytes, int tile, int threads,
+                         const PassArgs& a, cudaStream_t s) {
+  switch (key_bytes) {
+    case 4:
+      return rank_scatter_shape<LOOKBACK, Word, 4>(tile, threads, a, s);
+    case 2:
+      return rank_scatter_shape<LOOKBACK, Word, 2>(tile, threads, a, s);
+    case 1:
+      return rank_scatter_shape<LOOKBACK, Word, 1>(tile, threads, a, s);
+  }
+  return false;
 }
 
 int radix_bits(int radix) {
@@ -862,6 +1122,15 @@ int num_sms() {
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   return sms > 0 ? sms : 1;
+}
+
+// The digit source holds keys of key_bytes bytes (1, 2 or 4) of kind `kind`
+// (0 unsigned, 1 signed, 2 float; a 4-byte word plane is 0): see KeyKind.
+// A plane of ins equal to digsrc is the key plane, moved at its own width;
+// every other plane is int32.
+bool pass_key_ok(int key_bytes, int kind, int shift, KeyKind* kk) {
+  return key_kind(key_bytes, kind, kk) && shift >= 0 &&
+         shift < 8 * key_bytes;
 }
 
 }  // namespace
@@ -923,47 +1192,65 @@ int rst_exclusive_scan(const void* x, long long n, void* out, void* scratch,
 // base: (R, nblocks) int32, digit-major.  ins/outs: host arrays of nplanes
 // device pointers (nplanes <= rst_max_planes()).  dest may be null.
 int rst_rank_scatter(const void* digsrc, long long n, int tile, int threads,
-                     int shift, int radix, const void* base,
-                     const void* const* ins, void* const* outs, int nplanes,
-                     void* dest, void* stream) {
-  Planes planes;
-  if (!radix_ok(radix) || n <= 0 || n >= (1ll << 31) || shift < 0 ||
-      shift > 31 || !fill_planes(planes, ins, outs, nplanes))
+                     int shift, int radix, int key_bytes, int kind,
+                     const void* base, const void* const* ins,
+                     void* const* outs, int nplanes, void* dest,
+                     void* stream) {
+  PassArgs a;
+  if (!radix_ok(radix) || n <= 0 || n >= (1ll << 31) || tile <= 0 ||
+      !pass_key_ok(key_bytes, kind, shift, &a.kk) ||
+      !fill_planes(a.planes, ins, outs, nplanes))
     return (int)cudaErrorInvalidValue;
-  const LookBack none = {nullptr, nullptr, nullptr, nullptr};
-  if (!rank_scatter_shape<false, unsigned>(
-          tile, threads, (const int32_t*)digsrc, n, shift, radix_bits(radix),
-          (const int32_t*)base, none, (n + tile - 1) / tile, planes, nplanes,
-          (int32_t*)dest, (cudaStream_t)stream))
+  a.digsrc = digsrc;
+  a.n = n;
+  a.shift = shift;
+  a.bits = radix_bits(radix);
+  a.base = (const int32_t*)base;
+  a.lb = {nullptr, nullptr, nullptr, nullptr};
+  a.nblocks = (n + tile - 1) / tile;
+  a.nplanes = nplanes;
+  a.dest = (int32_t*)dest;
+  if (!rank_scatter_launch<false, unsigned>(key_bytes, tile, threads, a,
+                                            (cudaStream_t)stream))
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
 // Digit counts of every pass: plane x0 carries passes0 passes (rows 0 ..
 // passes0 - 1 of out), x1, if passes1 > 0, the next passes1.  out: (passes0
-// + passes1, radix) int32, zeroed here on `stream` before the launch.
+// + passes1, radix) int32, zeroed here on `stream` before the launch.  A
+// narrow key plane (key_bytes 1 or 2, of kind `kind` as in rst_rank_scatter)
+// goes alone, as x0; two planes are int32 words.
 int rst_pass_histograms(const void* x0, int passes0, const void* x1,
-                        int passes1, long long n, int radix, void* out,
-                        void* stream) {
+                        int passes1, long long n, int radix, int key_bytes,
+                        int kind, void* out, void* stream) {
   const int bits = radix_bits(radix);
+  const int width = 8 * key_bytes;
+  KeyKind kk;
   if (!radix_ok(radix) || n <= 0 || n >= (1ll << 31) || passes0 < 1 ||
-      passes1 < 0 || (uintptr_t)x0 % 4 || (passes1 > 0 && (uintptr_t)x1 % 4) ||
-      (passes0 - 1) * bits > 31 || (passes1 - 1) * bits > 31)
+      passes1 < 0 || !key_kind(key_bytes, kind, &kk) ||
+      (key_bytes < 4 && passes1 > 0) || (uintptr_t)x0 % key_bytes ||
+      (passes1 > 0 && (uintptr_t)x1 % 4) || (passes0 - 1) * bits >= width ||
+      (passes1 - 1) * bits > 31)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int rows = passes0 + passes1;
   cudaError_t e = cudaMemsetAsync(out, 0, (size_t)rows * radix * 4, s);
   if (e != cudaSuccess) return (int)e;
-  const HistPlanes hp = {{(const int32_t*)x0, (const int32_t*)x1},
-                         {passes0, passes1},
-                         {0, passes0}};
-  const long long per_cta = (long long)kHistWarps * 32 * kHistUnroll * 4;
+  const HistPlanes hp = {{x0, x1}, {passes0, passes1}, {0, passes0}};
+  const long long per_cta = (long long)kHistWarps * 32 * kHistUnroll * 16 /
+                            key_bytes;
   long long ctas = (n + per_cta - 1) / per_cta;
   const long long most = 3ll * num_sms();
   if (ctas > most) ctas = most;
   const dim3 grid((unsigned)ctas, passes1 > 0 ? 2u : 1u);
-  pass_histograms_kernel<<<grid, kHistThreads, 0, s>>>(hp, n, bits,
-                                                        (int32_t*)out);
+  int32_t* o = (int32_t*)out;
+  if (key_bytes == 4)
+    pass_histograms_kernel<4><<<grid, kHistThreads, 0, s>>>(hp, n, bits, kk, o);
+  else if (key_bytes == 2)
+    pass_histograms_kernel<2><<<grid, kHistThreads, 0, s>>>(hp, n, bits, kk, o);
+  else
+    pass_histograms_kernel<1><<<grid, kHistThreads, 0, s>>>(hp, n, bits, kk, o);
   return (int)cudaGetLastError();
 }
 
@@ -984,33 +1271,37 @@ int rst_zero(void* p, long long bytes, void* stream) {
 // One look-back pass.  counts: (R,) digit totals of the pass (a row of
 // rst_pass_histograms).  scratch: this pass's zeroed
 // rst_onesweep_scratch_bytes.  base_out: (R, nblocks) int32 tile bases, or
-// null.  dest may be null.
+// null.  dest may be null.  key_bytes, kind and the planes as in
+// rst_rank_scatter.
 int rst_onesweep_pass(const void* digsrc, long long n, int tile, int threads,
-                      int shift, int radix, const void* counts, void* scratch,
+                      int shift, int radix, int key_bytes, int kind,
+                      const void* counts, void* scratch,
                       long long scratch_bytes, const void* const* ins,
                       void* const* outs, int nplanes, void* dest,
                       void* base_out, void* stream) {
-  Planes planes;
-  if (!radix_ok(radix) || n <= 0 || n >= (1ll << 31) || shift < 0 ||
-      shift > 31 || tile <= 0 || (uintptr_t)scratch % 16 ||
+  PassArgs a;
+  if (!radix_ok(radix) || n <= 0 || n >= (1ll << 31) || tile <= 0 ||
+      !pass_key_ok(key_bytes, kind, shift, &a.kk) ||
+      (uintptr_t)scratch % 16 ||
       scratch_bytes < onesweep_pass_bytes(n, tile, radix) ||
-      !fill_planes(planes, ins, outs, nplanes))
+      !fill_planes(a.planes, ins, outs, nplanes))
     return (int)cudaErrorInvalidValue;
-  const LookBack lb = {(const int32_t*)counts, (char*)scratch + 16,
-                       (unsigned*)scratch, (int32_t*)base_out};
-  const int32_t* ds = (const int32_t*)digsrc;
-  const long long nblocks = (n + tile - 1) / tile;
-  const int bits = radix_bits(radix);
+  a.digsrc = digsrc;
+  a.n = n;
+  a.shift = shift;
+  a.bits = radix_bits(radix);
+  a.base = nullptr;
+  a.lb = {(const int32_t*)counts, (char*)scratch + 16, (unsigned*)scratch,
+          (int32_t*)base_out};
+  a.nblocks = (n + tile - 1) / tile;
+  a.nplanes = nplanes;
+  a.dest = (int32_t*)dest;
   cudaStream_t s = (cudaStream_t)stream;
   const bool ok =
       n < (1ll << 30)
-          ? rank_scatter_shape<true, unsigned>(tile, threads, ds, n, shift,
-                                               bits, nullptr, lb, nblocks,
-                                               planes, nplanes,
-                                               (int32_t*)dest, s)
-          : rank_scatter_shape<true, unsigned long long>(
-                tile, threads, ds, n, shift, bits, nullptr, lb, nblocks,
-                planes, nplanes, (int32_t*)dest, s);
+          ? rank_scatter_launch<true, unsigned>(key_bytes, tile, threads, a, s)
+          : rank_scatter_launch<true, unsigned long long>(key_bytes, tile,
+                                                          threads, a, s);
   if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -175,14 +175,22 @@ def _unimage(bits: torch.Tensor, kind: str, width: int) -> torch.Tensor:
     return bits ^ (~(bits >> (width - 1)) | sign)
 
 
+def narrow_image(bits: torch.Tensor, kind: str) -> torch.Tensor:
+    """The sortable image of 1- or 2-byte keys of ``kind`` ("u", "i" or
+    "f") given by their bits (a tensor of any dtype of that width, viewed,
+    never converted), zero-extended into int32."""
+    w = bits.element_size()
+    img = _image(bits.view(_NARROW_INT[w]), kind, 8 * w)
+    return img.view(_NARROW_UINT[w]).to(torch.int32)
+
+
 def to_sortable(keys: torch.Tensor) -> torch.Tensor:
     """Keys → signed-container bits whose unsigned order is the key order.
     A 1- or 2-byte key takes its image at its own width (a float is
     bit-viewed, never converted), then zero-extends into int32."""
     d = key_dtype(keys.dtype)
     if d.itemsize < 4:
-        img = _image(keys.view(_NARROW_INT[d.itemsize]), d.kind, key_bits(d))
-        return img.view(_NARROW_UINT[d.itemsize]).to(torch.int32)
+        return narrow_image(keys, d.kind)
     return _image(keys.view(signed_container(d)), d.kind, key_bits(d))
 
 

@@ -13,9 +13,14 @@ it was given:
 Each wrapper carries ``launches``, a plain int that counts the kernel
 launches it made, so a run can show that its path went through the kernel.
 
-All kernels take int32 planes: keys of every width travel as int32 word
-planes (ops/stream.py), so one set of kernels serves every key type.
-Element counts stay below 2^31 because destinations are int32.
+Payload planes are int32.  The key (digit) plane of ``pass_histograms``,
+``rank_scatter`` and ``onesweep_pass`` is an int32 word plane (4- and
+8-byte keys travel as word planes, ops/stream.py), whose digit is taken
+from its bits as they are, or the caller's own 1- or 2-byte keys (uint8,
+int8; int16, uint16, float16) with their kind (``"u"``, ``"i"`` or
+``"f"``): the kernels take the digit from the key's sortable image in
+registers and move the key's bits at their own width.  Element counts
+stay below 2^31 because destinations are int32.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import ctypes
 
 import torch
 
-from .. import _build
+from .. import _build, dtypes
 from ..config import DEFAULT_CONFIG, SortConfig
 from ..status import EngineError, OperationStatus
 from . import ranking
@@ -45,10 +50,12 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def _check_plane(x: torch.Tensor, what: str, device=None) -> None:
-    if x.dtype != torch.int32 or x.ndim != 1 or not x.is_contiguous():
-        raise ValueError(f"{what} must be a contiguous 1-D int32 tensor, got "
-                         f"{x.dtype} {tuple(x.shape)}")
+def _check_plane(x: torch.Tensor, what: str, device=None,
+                 dtypes_ok=(torch.int32,)) -> None:
+    if x.dtype not in dtypes_ok or x.ndim != 1 or not x.is_contiguous():
+        names = "/".join(str(d).removeprefix("torch.") for d in dtypes_ok)
+        raise ValueError(f"{what} must be a contiguous 1-D {names} tensor, "
+                         f"got {x.dtype} {tuple(x.shape)}")
     if x.numel() > MAX_ELEMS:
         raise EngineError(OperationStatus.HOST_BUFFERS_FAILED,
                           f"{what}: {x.numel()} elements; int32 destinations "
@@ -57,15 +64,37 @@ def _check_plane(x: torch.Tensor, what: str, device=None) -> None:
         raise ValueError(f"{what} is on {x.device}, expected {device}")
 
 
+# dtypes of a narrow key plane, and the kinds of key it may hold
+NARROW_KEY_DTYPES = (torch.uint8, torch.int8, torch.int16, torch.uint16,
+                     torch.float16)
+_KEY_PLANE_DTYPES = (torch.int32,) + NARROW_KEY_DTYPES
+_KINDS = {"u": 0, "i": 1, "f": 2}
+
+
+def _check_key_plane(x: torch.Tensor, kind: str, what: str,
+                     device=None) -> None:
+    """An int32 word plane, whose bits are the digits' source (kind "u"),
+    or a narrow key plane of NARROW_KEY_DTYPES with its kind."""
+    _check_plane(x, what, device, _KEY_PLANE_DTYPES)
+    if kind not in _KINDS or (x.dtype == torch.int32 and kind != "u"):
+        raise ValueError(f"{what}: kind {kind!r} for a {x.dtype} plane; an "
+                         f"int32 word plane takes 'u', a narrow key plane "
+                         f"one of {tuple(_KINDS)}")
+
+
 def _check_radix(radix: int) -> None:
     if radix < 2 or radix > 256 or radix & (radix - 1):
         raise ValueError(f"radix must be a power of two in [2, 256], got "
                          f"{radix}")
 
 
-def _digits(x: torch.Tensor, radix: int, shift: int) -> torch.Tensor:
-    # Exact on the signed container: the mask drops every bit that the
-    # arithmetic shift fills in.
+def _digits(x: torch.Tensor, radix: int, shift: int,
+            kind: str = "u") -> torch.Tensor:
+    # A narrow key's digits are its image's.  Exact on the signed
+    # container: the mask drops every bit that the arithmetic shift fills
+    # in.
+    if x.element_size() < 4:
+        x = dtypes.narrow_image(x, kind)
     return (x >> shift) & (radix - 1)
 
 
@@ -76,11 +105,11 @@ def _digits(x: torch.Tensor, radix: int, shift: int) -> torch.Tensor:
 # plane is written and read back between passes.
 
 def digit_histogram_plain(x: torch.Tensor, radix: int, tile: int,
-                          shift: int = 0) -> torch.Tensor:
+                          shift: int = 0, kind: str = "u") -> torch.Tensor:
     n = x.shape[0]
     B = -(-n // tile)
     blk = torch.arange(n, device=x.device, dtype=torch.int64) // tile
-    key = blk * radix + _digits(x, radix, shift).to(torch.int64)
+    key = blk * radix + _digits(x, radix, shift, kind).to(torch.int64)
     return torch.bincount(key, minlength=B * radix).view(B, radix).to(
         torch.int32)
 
@@ -166,8 +195,8 @@ def _stitch_block_base_plain(counts: torch.Tensor) -> torch.Tensor:
 
 def rank_scatter_plain(digit_src: torch.Tensor, planes, base: torch.Tensor,
                        radix: int, tile: int, shift: int = 0,
-                       with_dest: bool = False):
-    d = _digits(digit_src, radix, shift).to(torch.int64)
+                       with_dest: bool = False, kind: str = "u"):
+    d = _digits(digit_src, radix, shift, kind).to(torch.int64)
     _, rank = ranking.tile_ranks(d, radix, tile)
     blk = torch.arange(d.shape[0], device=d.device, dtype=torch.int64) // tile
     dest = base.to(torch.int64)[blk, d] + rank
@@ -175,16 +204,35 @@ def rank_scatter_plain(digit_src: torch.Tensor, planes, base: torch.Tensor,
     return outs, (dest.to(torch.int32) if with_dest else None)
 
 
-def _check_pass(digit_src: torch.Tensor, planes, radix: int, what: str):
+def _check_pass(digit_src: torch.Tensor, planes, radix: int, shift: int,
+                kind: str, what: str):
+    """The planes of one pass: int32 planes, and a narrow digit plane
+    among them only as the key plane itself."""
     planes = tuple(planes)
-    _check_plane(digit_src, f"{what} digit plane")
+    _check_key_plane(digit_src, kind, f"{what} digit plane")
     n = digit_src.numel()
+    if not 0 <= shift < 8 * digit_src.element_size():
+        raise ValueError(f"shift {shift} outside a {digit_src.dtype} key")
+    narrow = digit_src.dtype != torch.int32
     for p in planes:
-        _check_plane(p, f"{what} plane", digit_src.device)
+        if narrow and p.dtype == digit_src.dtype:
+            if n and p.data_ptr() != digit_src.data_ptr():
+                raise ValueError(f"{what}: a {p.dtype} plane must be the "
+                                 f"narrow key plane itself")
+        else:
+            _check_plane(p, f"{what} plane", digit_src.device)
+            if narrow and n and p.data_ptr() == digit_src.data_ptr():
+                raise ValueError(f"{what}: an int32 plane aliases the "
+                                 f"narrow key plane")
         if p.numel() != n:
             raise ValueError("every plane must have the digit plane's length")
     _check_radix(radix)
     return planes
+
+
+def _key_args(digit_src: torch.Tensor, kind: str):
+    """The key plane's (bytes a key, kind) arguments of the C entries."""
+    return digit_src.element_size(), _KINDS[kind]
 
 
 def _launch_groups(lib, planes, outs):
@@ -201,15 +249,18 @@ def _launch_groups(lib, planes, outs):
 def rank_scatter(digit_src: torch.Tensor, planes, base: torch.Tensor,
                  radix: int, tile: int, shift: int = 0,
                  with_dest: bool = False,
-                 threads: int = DEFAULT_CONFIG.threads_per_cta):
+                 threads: int = DEFAULT_CONFIG.threads_per_cta,
+                 kind: str = "u"):
     """One stable radix pass: every plane of ``planes`` moves to the stable
-    destination of its element's digit ``(digit_src >> shift) & (R-1)``.
+    destination of its element's digit ``(digit_src >> shift) & (R-1)``
+    (of a narrow key plane's image, by ``kind``).
 
     ``base`` is the (B, R) global offset table of ``_stitch_block_base``
     for the same digits and tile.  ``digit_src`` may be one of ``planes``.
     Returns (planes_out, dest) where dest is the (n,) int32 destination
     table when ``with_dest`` (the JAX ``rank_pass`` contract), else None."""
-    planes = _check_pass(digit_src, planes, radix, "rank_scatter")
+    planes = _check_pass(digit_src, planes, radix, shift, kind,
+                         "rank_scatter")
     dev = digit_src.device
     n = digit_src.numel()
     B = -(-n // tile)
@@ -218,11 +269,11 @@ def rank_scatter(digit_src: torch.Tensor, planes, base: torch.Tensor,
                          f"{base.dtype} {tuple(base.shape)}")
     if not _on_cuda(digit_src):
         return rank_scatter_plain(digit_src, planes, base, radix, tile, shift,
-                                  with_dest)
+                                  with_dest, kind)
     if base.device != dev:
         raise ValueError(f"base is on {base.device}, expected {dev}")
     outs = tuple(torch.empty_like(p) for p in planes)
-    dest = torch.empty_like(digit_src) if with_dest else None
+    dest = torch.empty(n, dtype=torch.int32, device=dev) if with_dest else None
     if n == 0:
         return outs, dest
     base_rb = base.T.contiguous()  # digit-major (R, B); free from the stitch
@@ -231,7 +282,7 @@ def rank_scatter(digit_src: torch.Tensor, planes, base: torch.Tensor,
     for g, (ins, outp, k) in enumerate(_launch_groups(lib, planes, outs)):
         _build.check(lib.rst_rank_scatter(
             digit_src.data_ptr(), n, tile, threads, shift, radix,
-            base_rb.data_ptr(), ins, outp, k,
+            *_key_args(digit_src, kind), base_rb.data_ptr(), ins, outp, k,
             dest.data_ptr() if (dest is not None and g == 0) else None,
             _stream(digit_src)), "rank_scatter")
         rank_scatter.launches += 1
@@ -265,42 +316,49 @@ def _stitch_block_base(counts: torch.Tensor) -> torch.Tensor:
 # ------------------------------------------------- K1 family, every pass
 #
 # The onesweep sort's histogram: the digit counts of every pass from one
-# read of each key word plane, in place of a digit_histogram launch (and a
-# scan) a pass.  Plane w carries passes[w] digits, pass j's being
-# ``(x >> j * bits) & (R - 1)``.
+# read of each key plane, in place of a digit_histogram launch (and a scan)
+# a pass.  Plane w carries passes[w] digits, pass j's being
+# ``(x >> j * bits) & (R - 1)`` (of a narrow key plane's image).
 
 MAX_HIST_PLANES = 2
 
 
-def pass_histograms_plain(planes, passes, radix: int) -> torch.Tensor:
+def pass_histograms_plain(planes, passes, radix: int,
+                          kind: str = "u") -> torch.Tensor:
     bits = radix.bit_length() - 1
-    rows = [torch.bincount(_digits(x, radix, j * bits).to(torch.int64),
+    rows = [torch.bincount(_digits(x, radix, j * bits, kind).to(torch.int64),
                            minlength=radix)
             for x, np_ in zip(planes, passes) for j in range(np_)]
     return torch.stack(rows).to(torch.int32)
 
 
-def pass_histograms(planes, passes, radix: int) -> torch.Tensor:
+def pass_histograms(planes, passes, radix: int,
+                    kind: str = "u") -> torch.Tensor:
     """(P, R) int32 digit counts of every pass, P = sum(passes): the first
     plane's passes[0] rows, then the second plane's; pass j of a plane
     counts the digit ``(x >> j * log2(R)) & (R - 1)``.  One launch (and one
-    memset of the table) for up to two planes."""
+    memset of the table) for up to two int32 word planes, or for one
+    narrow key plane of ``kind``, whose digits are its image's."""
     planes, passes = tuple(planes), tuple(int(p) for p in passes)
     _check_radix(radix)
     bits = radix.bit_length() - 1
     if not 1 <= len(planes) <= MAX_HIST_PLANES or len(passes) != len(planes):
         raise ValueError(f"pass_histograms takes 1 to {MAX_HIST_PLANES} "
                          f"planes and a pass count for each")
-    if any(p < 1 or (p - 1) * bits > 31 for p in passes):
-        raise ValueError(f"pass counts {passes} do not fit 32-bit planes of "
-                         f"{bits}-bit digits")
+    _check_key_plane(planes[0], kind, "pass_histograms plane")
+    width = 8 * planes[0].element_size()
+    if width < 32 and len(planes) > 1:
+        raise ValueError("a narrow key plane goes to pass_histograms alone")
+    if any(p < 1 or (p - 1) * bits >= width for p in passes):
+        raise ValueError(f"pass counts {passes} do not fit {width}-bit "
+                         f"planes of {bits}-bit digits")
     n = planes[0].numel()
-    for x in planes:
+    for x in planes[1:]:
         _check_plane(x, "pass_histograms plane", planes[0].device)
         if x.numel() != n:
             raise ValueError("every plane must have the same length")
     if not _on_cuda(planes[0]):
-        return pass_histograms_plain(planes, passes, radix)
+        return pass_histograms_plain(planes, passes, radix, kind)
     out = torch.empty((sum(passes), radix), dtype=torch.int32,
                       device=planes[0].device)
     if n == 0:
@@ -308,13 +366,16 @@ def pass_histograms(planes, passes, radix: int) -> torch.Tensor:
     x1 = planes[1] if len(planes) > 1 else planes[0]
     _build.check(_build.lib().rst_pass_histograms(
         planes[0].data_ptr(), passes[0], x1.data_ptr(),
-        passes[1] if len(planes) > 1 else 0, n, radix, out.data_ptr(),
-        _stream(planes[0])), "pass_histograms")
-    pass_histograms.launches += 1
+        passes[1] if len(planes) > 1 else 0, n, radix,
+        *_key_args(planes[0], kind), out.data_ptr(), _stream(planes[0])),
+        "pass_histograms")
+    _count(pass_histograms, width)
     return out
 
 
 pass_histograms.launches = 0
+# launches with a narrow key plane, by its bits (counted in launches too)
+pass_histograms.narrow_launches = {8: 0, 16: 0}
 
 
 def onesweep_scratch(n: int, radix: int, tile: int, passes: int,
@@ -332,18 +393,20 @@ def onesweep_scratch(n: int, radix: int, tile: int, passes: int,
 
 
 def onesweep_pass_plain(digit_src: torch.Tensor, planes, radix: int,
-                        tile: int, shift: int = 0, with_dest: bool = False):
+                        tile: int, shift: int = 0, with_dest: bool = False,
+                        kind: str = "u"):
     base = _stitch_block_base_plain(
-        digit_histogram_plain(digit_src, radix, tile, shift))
+        digit_histogram_plain(digit_src, radix, tile, shift, kind))
     return rank_scatter_plain(digit_src, planes, base, radix, tile, shift,
-                              with_dest)
+                              with_dest, kind)
 
 
 def onesweep_pass(digit_src: torch.Tensor, planes, counts: torch.Tensor,
                   radix: int, tile: int, shift: int = 0, *,
                   scratch: torch.Tensor | None = None, outs=None,
                   with_dest: bool = False,
-                  threads: int = DEFAULT_CONFIG.threads_per_cta):
+                  threads: int = DEFAULT_CONFIG.threads_per_cta,
+                  kind: str = "u"):
     """One stable radix pass as a single launch: the planes move as
     ``rank_scatter`` moves them, each tile's offsets found by look-back.
 
@@ -351,8 +414,11 @@ def onesweep_pass(digit_src: torch.Tensor, planes, counts: torch.Tensor,
     ``pass_histograms``).  ``scratch`` is a zeroed row of
     ``onesweep_scratch``, used once; None allocates and zeroes one.
     ``outs`` are tensors like ``planes`` to write into (None allocates).
-    Returns (planes_out, dest), dest as in ``rank_scatter``."""
-    planes = _check_pass(digit_src, planes, radix, "onesweep_pass")
+    A narrow ``digit_src`` of ``kind`` is the key plane as in
+    ``rank_scatter``.  Returns (planes_out, dest), dest as in
+    ``rank_scatter``."""
+    planes = _check_pass(digit_src, planes, radix, shift, kind,
+                         "onesweep_pass")
     dev = digit_src.device
     n = digit_src.numel()
     if tuple(counts.shape) != (radix,) or counts.dtype != torch.int32:
@@ -366,7 +432,7 @@ def onesweep_pass(digit_src: torch.Tensor, planes, counts: torch.Tensor,
             raise ValueError("outs must match planes")
     if not _on_cuda(digit_src):
         res, dest = onesweep_pass_plain(digit_src, planes, radix, tile,
-                                        shift, with_dest)
+                                        shift, with_dest, kind)
         if outs is None:
             return res, dest
         for o, r in zip(outs, res):
@@ -376,7 +442,7 @@ def onesweep_pass(digit_src: torch.Tensor, planes, counts: torch.Tensor,
         raise ValueError(f"counts is on {counts.device}, expected {dev}")
     if outs is None:
         outs = tuple(torch.empty_like(p) for p in planes)
-    dest = torch.empty_like(digit_src) if with_dest else None
+    dest = torch.empty(n, dtype=torch.int32, device=dev) if with_dest else None
     if n == 0:
         return outs, dest
     lib = _build.lib()
@@ -393,23 +459,25 @@ def onesweep_pass(digit_src: torch.Tensor, planes, counts: torch.Tensor,
     base_rb = (torch.empty((radix, B), dtype=torch.int32, device=dev)
                if len(groups) > 1 else None)
     stream = _stream(digit_src)
+    key = _key_args(digit_src, kind)
     ins, outp, k = groups[0]
     _build.check(lib.rst_onesweep_pass(
-        digit_src.data_ptr(), n, tile, threads, shift, radix,
+        digit_src.data_ptr(), n, tile, threads, shift, radix, *key,
         counts.data_ptr(), scratch.data_ptr(), scratch.nbytes, ins, outp, k,
         dest.data_ptr() if dest is not None else None,
         base_rb.data_ptr() if base_rb is not None else None, stream),
         "onesweep_pass")
-    onesweep_pass.launches += 1
+    _count(onesweep_pass, 8 * digit_src.element_size())
     for ins, outp, k in groups[1:]:
         _build.check(lib.rst_rank_scatter(
-            digit_src.data_ptr(), n, tile, threads, shift, radix,
+            digit_src.data_ptr(), n, tile, threads, shift, radix, *key,
             base_rb.data_ptr(), ins, outp, k, None, stream), "rank_scatter")
         rank_scatter.launches += 1
     return outs, dest
 
 
 onesweep_pass.launches = 0
+onesweep_pass.narrow_launches = {8: 0, 16: 0}
 
 
 def sort_biased(keys_bits: torch.Tensor, payloads,
@@ -430,8 +498,31 @@ def sort_biased(keys_bits: torch.Tensor, payloads,
     return keys_out, stream.planes_to_payloads(planes_out, specs)
 
 
+def sort_narrow(keys: torch.Tensor, kind: str, payloads,
+                config: SortConfig = DEFAULT_CONFIG):
+    """Stable LSD radix sort of 1- or 2-byte keys given as the caller's own
+    bits (a tensor of NARROW_KEY_DTYPES) of ``kind`` ("u", "i", "f"), with
+    a tuple of payload tensors: the narrow counterpart of ``sort_biased``.
+    The kernels take each digit from the keys' sortable image in registers
+    and move the keys' bits, so no transformed or widened key plane is
+    made.  Returns (sorted keys of ``keys``' dtype, payloads)."""
+    from . import stream
+
+    planes, specs = stream.payloads_to_planes(payloads)
+    keys_out, planes_out = stream.sort_narrow_planes(
+        keys, kind, planes, radix=config.radix, tile=config.tile_elems,
+        threads=config.threads_per_cta)
+    return keys_out, stream.planes_to_payloads(planes_out, specs)
+
+
 _COUNTED = (digit_histogram, exclusive_scan, rank_scatter, pass_histograms,
             onesweep_pass)
+
+
+def _count(fn, key_bits: int) -> None:
+    fn.launches += 1
+    if key_bits < 32:
+        fn.narrow_launches[key_bits] += 1
 
 
 def launch_counts() -> dict:
@@ -441,6 +532,18 @@ def launch_counts() -> dict:
     return {f.__name__: f.launches for f in _COUNTED}
 
 
+def narrow_launch_counts() -> dict:
+    """The launches of ``pass_histograms`` and ``onesweep_pass`` with an 8-
+    or 16-bit key plane (``pass_histograms_8bit`` and so on), which
+    ``launch_counts`` counts in their totals too."""
+    return {f"{f.__name__}_{bits}bit": c
+            for f in (pass_histograms, onesweep_pass)
+            for bits, c in f.narrow_launches.items()}
+
+
 def reset_launch_counts() -> None:
     for f in _COUNTED:
         f.launches = 0
+    for f in (pass_histograms, onesweep_pass):
+        for bits in f.narrow_launches:
+            f.narrow_launches[bits] = 0

@@ -3,7 +3,11 @@
 Port of ``radix_sort_tpu/ops/sort.py``.  Keys go through the
 order-preserving transform of ``dtypes.to_sortable`` (int32/int64
 containers whose unsigned order is the key order), so every key type shares
-one code path, and come back to the caller's dtype at the end.
+one code path, and come back to the caller's dtype at the end.  1- and
+2-byte keys under ``radix`` and ``merge`` are the exception: the kernels
+take the caller's bits at their own width and the image in registers
+(``cuda_radix.sort_narrow``), so no transform runs and no int32 key plane
+is made.
 
 Engines:
   - ``radix`` (= ``auto``): the LSD radix passes of ops/cuda_radix.py.  On a
@@ -90,6 +94,14 @@ def _sort_impl(keys: torch.Tensor, payloads, config: SortConfig):
     if keys.ndim != 1:
         raise EngineError(OperationStatus.HOST_BUFFERS_FAILED,
                           f"keys must be 1-D, got shape {tuple(keys.shape)}")
+    d = dtypes.key_dtype(keys.dtype)
+    if d.itemsize < 4 and _dispatch_engine(config.engine) in ("radix",
+                                                              "merge"):
+        # the kernels take the caller's bits at their own width and the
+        # image in registers: no transform, no int32 key plane
+        ko, pls = cuda_radix.sort_narrow(dtypes.as_container(keys), d.kind,
+                                         tuple(payloads), config)
+        return dtypes.from_container(ko, keys.dtype), pls
     ku, pls = sort_biased_kv(dtypes.to_sortable(keys), payloads, config,
                              dtypes.key_bits(keys.dtype))
     return dtypes.from_sortable(ku, keys.dtype), pls
@@ -121,9 +133,20 @@ def sort_kv(keys: torch.Tensor, values: Any,
     return out_keys, pytree.tree_unflatten(list(out_leaves), spec)
 
 
+def _iota(n: int, device) -> torch.Tensor:
+    """0 .. n - 1 as int32, by one broadcast add of two short aranges:
+    torch's arange kernel writes 2^27 int32 in 1.26 ms on an H100 (~0.4
+    TB/s; scripts/narrow_pass_probe.py), a whole argsort of 8-bit keys'
+    worth."""
+    w = 1024
+    hi = torch.arange(-(-n // w), dtype=torch.int32, device=device) * w
+    lo = torch.arange(w, dtype=torch.int32, device=device)
+    return (hi[:, None] + lo).view(-1)[:n]
+
+
 def argsort(keys: torch.Tensor, config: SortConfig = DEFAULT_CONFIG,
             engine: str | None = None) -> torch.Tensor:
     """Stable argsort (int32 permutation)."""
-    iota = torch.arange(keys.shape[0], dtype=torch.int32, device=keys.device)
-    _, perm = sort_kv(keys, iota, config=config, engine=engine)
+    _, perm = sort_kv(keys, _iota(keys.shape[0], keys.device),
+                      config=config, engine=engine)
     return perm

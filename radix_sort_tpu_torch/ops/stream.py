@@ -2,8 +2,11 @@
 
 Port of ``radix_sort_tpu/ops/pallas_stream.py``.  Keys and payloads travel
 as int32 word planes: a 4-byte column is one plane, an 8-byte column a
-(lo, hi) pair (``x.view(torch.int32).reshape(n, 2)``), a narrower column is
-widened to one plane.  So every kernel sees only int32 planes.  A sort is
+(lo, hi) pair (``x.view(torch.int32).reshape(n, 2)``), a narrower payload
+column is widened to one plane.  A 1- or 2-byte key of the sort entry
+points is the exception: it stays the caller's bits at its own width, and
+the kernels take its digits from its sortable image
+(``sort_narrow_planes``).  A sort is
 one ``pass_histograms`` launch over the key word planes, one host read of
 its (P, R) table, and one ``onesweep_pass`` launch for each pass that one
 digit does not fill, moving every plane by the digit of one of them.
@@ -46,7 +49,7 @@ def _read_full_passes(hist: torch.Tensor, n: int) -> list:
 
 
 def _sort_planes(planes, passes, radix: int, tile: int,
-                 threads: int = _THREADS):
+                 threads: int = _THREADS, kind: str = "u"):
     """Onesweep LSD loop: plane w (w < len(passes)) carries passes[w]
     digits, pass j's at shift j * log2(radix); every plane moves every
     pass.  One pass_histograms launch gives every pass's digit totals, the
@@ -54,11 +57,13 @@ def _sort_planes(planes, passes, radix: int, tile: int,
     onesweep_pass launch — a filled pass is the identity, the reference's
     CPU early-exit (CRadixSortCPU.h).  The passes ping-pong between two
     buffer sets allocated here, and their look-back scratch is zeroed by
-    one memset.  Returns the planes after the last pass."""
+    one memset.  A narrow key plane (planes[0], the only key plane) of
+    ``kind`` gives the digits of its image.  Returns the planes after the
+    last pass."""
     planes = tuple(planes)
     n = planes[0].numel()
     bits = radix.bit_length() - 1
-    hist = cr.pass_histograms(planes[:len(passes)], passes, radix)
+    hist = cr.pass_histograms(planes[:len(passes)], passes, radix, kind)
     full = _read_full_passes(hist, n)
     rows = [(w, j * bits) for w, np_ in enumerate(passes) for j in range(np_)]
     run = [(row, w, shift) for row, (w, shift) in enumerate(rows)
@@ -73,7 +78,8 @@ def _sort_planes(planes, passes, radix: int, tile: int,
     for i, (row, w, shift) in enumerate(run):
         planes, _ = cr.onesweep_pass(planes[w], planes, hist[row], radix,
                                      tile, shift, scratch=scratch[i],
-                                     outs=bufs[i % 2], threads=threads)
+                                     outs=bufs[i % 2], threads=threads,
+                                     kind=kind)
     return planes
 
 
@@ -116,6 +122,28 @@ def sort_planes(keys_bits: torch.Tensor, payload_planes=(), radix: int = 256,
     out = _sort_planes(kplanes + payload_planes, passes, radix, tile,
                        threads)
     return _join_key_word_planes(out[:nk], keys_bits.dtype), out[nk:]
+
+
+def sort_narrow_planes(keys: torch.Tensor, kind: str, payload_planes=(),
+                       radix: int = 256, tile: int = _TILE,
+                       threads: int = _THREADS):
+    """Stable LSD sort of 1- or 2-byte keys given as the caller's own bits
+    (``cuda_radix.NARROW_KEY_DTYPES``) of ``kind`` ("u", "i", "f"), plus
+    int32 payload planes: one pass_histograms launch over the narrow key
+    plane, one host read, and one onesweep_pass for each pass (one a byte
+    at radix 256) that one digit does not fill.  The kernels take the
+    digits from the keys' sortable image and move their bits, so the sort
+    ends with the caller's key bits in order and nothing to undo.
+    Returns (keys_out, payload_planes_out)."""
+    n = keys.shape[0]
+    payload_planes = tuple(payload_planes)
+    if n == 0:
+        return keys, payload_planes
+    bits_per = radix.bit_length() - 1
+    passes = (-(-8 * keys.element_size() // bits_per),)
+    out = _sort_planes((keys.contiguous(),) + payload_planes, passes, radix,
+                       tile, threads, kind)
+    return out[0], out[1:]
 
 
 def partition_planes(bucket_ids: torch.Tensor, planes_i32, num_buckets: int,

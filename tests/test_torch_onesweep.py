@@ -9,6 +9,7 @@ sort's control flow (one host read a sort, filled passes skipped) against
 the JAX sort.  The tests marked ``cuda`` hold both kernels, in both modes of
 the pass kernel, against their plain versions on the card."""
 
+import functools
 import inspect
 
 import jax
@@ -250,9 +251,13 @@ def _both_modes(k, planes, radix, tile, shift, threads):
 
 
 def _assert_same(a, b):
+    """Planes and destinations equal bit for bit (a float16 key plane
+    through its int16 view: NaN bits too)."""
     outs_a, dest_a = a
     outs_b, dest_b = b
     for x, y in zip(outs_a + (dest_a,), outs_b + (dest_b,)):
+        if x is not None and x.dtype == torch.float16:
+            x, y = x.view(torch.int16), y.view(torch.int16)
         torch.testing.assert_close(x, y, rtol=0, atol=0)
 
 
@@ -405,3 +410,369 @@ def test_cuda_pass_kernel_64bit_status_words(cuda_device):
     same = cr._digits(ok[1:], 256, 8) == cr._digits(ok[:-1], 256, 8)
     assert bool((~same | (oi[1:] > oi[:-1])).all())
     assert bool((k[oi.long()] == ok).all())
+
+
+# ------------------------------------------------------- narrow key planes
+#
+# A 1- or 2-byte key reaches the kernels as the caller's own bits with its
+# kind; the kernels take each digit from the key's sortable image and move
+# the bits.  The widened path (dtypes.to_sortable → an int32 image plane →
+# the same kernels) is what the narrow one must equal, bit for bit.
+
+NARROW = {"u8": np.uint8, "i8": np.int8, "u16": np.uint16, "i16": np.int16,
+          "f16": np.float16}
+
+
+def _narrow_keys(dtype, n: int, seed: int, dist: str = "random"):
+    """``datasets`` keys of ``dtype`` made from a seed, with the type's
+    extremes (floats: NaNs of both signs, +-0, +-inf, subnormals) planted
+    and a run of 300 equal keys.  float16 takes half its keys from random
+    bit patterns, since RandomDistributed's [-1e9, 1e9) overflows it.
+    ``dist`` "range": Range keys (sorted; a wide type's high digit repeats
+    in long runs); "one_high_digit": every key's image shares its high
+    byte, so a 16-bit sort's second pass is filled."""
+    d = np.dtype(dtype)
+    rng = np.random.default_rng(seed)
+    u = np.dtype(f"u{d.itemsize}")
+    if dist == "range":
+        return rtt.datasets.Range(d).generate(n)
+    if dist == "one_high_digit":
+        low = rng.integers(0, 256 if d.itemsize > 1 else 1, n)
+        img = (np.uint64(0x5A) << np.uint64(8 * d.itemsize - 8)) | \
+            low.astype(np.uint64)
+        return tdt.np_from_sortable_unsigned(img.astype(u), d)
+    with np.errstate(over="ignore"):
+        keys = rtt.datasets.RandomDistributed(d, seed=seed).generate(n)
+    if d.kind == "f":
+        half = rng.random(n) < 0.5
+        keys[half] = rng.integers(0, 1 << 16, int(half.sum()),
+                                  dtype=np.uint16).view(d)
+        sub = np.finfo(d).smallest_subnormal
+        plants = np.array([np.nan, -np.nan, 0.0, -0.0, np.inf, -np.inf,
+                           sub, -sub, 3 * sub, -3 * sub], d)
+        plants = np.concatenate([plants, np.array([0x7E01, 0xFE01, 0x7C01],
+                                                  np.uint16).view(d)])
+    else:
+        ii = np.iinfo(d)
+        plants = np.array([ii.min, ii.max, 0, 1, ii.min + 1, ii.max - 1], d)
+    at = rng.choice(n, 8 * len(plants), replace=False)
+    keys[at] = np.tile(plants, 8)
+    start = int(rng.integers(0, n - 300))
+    keys[start:start + 300] = keys[start]
+    return keys
+
+
+def _widened(keys_t: torch.Tensor) -> torch.Tensor:
+    """The widened path's key plane: the image zero-extended into int32."""
+    return tdt.to_sortable(keys_t)
+
+
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> None:
+    np.testing.assert_array_equal(tdt.tensor_to_numpy(a).view(np.uint8),
+                                  tdt.tensor_to_numpy(b).view(np.uint8))
+
+
+@pytest.mark.parametrize("radix", [16, 256])
+@pytest.mark.parametrize("dist", ["random", "range", "one_high_digit"])
+@pytest.mark.parametrize("dtype", list(NARROW))
+def test_narrow_plain_pass_matches_widened(dtype, dist, radix):
+    """pass_histograms and every onesweep_pass of a narrow key plane (the
+    plain versions, which the wrappers run on the CPU) equal the widened
+    path's bit for bit: the histogram rows, the moved key bits (through
+    their image), the payload and the destinations; at a ragged n."""
+    d = np.dtype(NARROW[dtype])
+    n = 3 * TILE + 777
+    keys = tdt.tensor_from_numpy(_narrow_keys(d, n, 31, dist), "cpu")
+    plane = tdt.as_container(keys)
+    wide = _widened(keys)
+    iota = torch.arange(n, dtype=torch.int32)
+    bits = radix.bit_length() - 1
+    passes = -(-8 * d.itemsize // bits)
+    hist = cr.pass_histograms((plane,), (passes,), radix, kind=d.kind)
+    torch.testing.assert_close(hist, cr.pass_histograms((wide,), (passes,),
+                                                        radix),
+                               rtol=0, atol=0)
+    for j in range(passes):
+        (ko, vo), dest = cr.onesweep_pass(plane, (plane, iota), hist[j],
+                                          radix, TILE, j * bits,
+                                          with_dest=True, kind=d.kind)
+        (wo, wv), wdest = cr.onesweep_pass(wide, (wide, iota), hist[j],
+                                           radix, TILE, j * bits,
+                                           with_dest=True)
+        assert ko.dtype == plane.dtype
+        torch.testing.assert_close(_widened(tdt.from_container(ko, d)), wo,
+                                   rtol=0, atol=0)
+        torch.testing.assert_close(vo, wv, rtol=0, atol=0)
+        torch.testing.assert_close(dest, wdest, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", list(NARROW))
+def test_narrow_sort_skips_filled_passes_and_keeps_the_callers_bits(
+        dtype, monkeypatch):
+    """A pass that one digit fills runs no onesweep_pass; a sort whose every
+    pass is filled returns the caller's key tensor untouched."""
+    d = np.dtype(NARROW[dtype])
+    n = 2 * TILE + 5
+    keys = tdt.tensor_from_numpy(_narrow_keys(d, n, 5, "one_high_digit"),
+                                 "cpu")
+    plane = tdt.as_container(keys)
+    iota = torch.arange(n, dtype=torch.int32)
+    spy = _Spy(cr.onesweep_pass)
+    monkeypatch.setattr(cr, "onesweep_pass", spy)
+    ko, (vo,) = stream.sort_narrow_planes(plane, d.kind, (iota,))
+    assert spy.calls == d.itemsize - 1  # the high byte fills its pass
+    same = plane[3].repeat(n)
+    ko2, (vo2,) = stream.sort_narrow_planes(same, d.kind, (iota,))
+    assert spy.calls == d.itemsize - 1
+    assert ko2 is same and vo2 is iota
+    img = tdt.np_to_sortable_unsigned(tdt.tensor_to_numpy(keys))
+    perm = np.argsort(img, kind="stable")
+    np.testing.assert_array_equal(vo.numpy(), perm)
+    _bits_equal(tdt.from_container(ko, d), keys[torch.from_numpy(perm)])
+
+
+NARROW_SORT_N = 2 * TILE + 333
+
+
+@functools.cache
+def _jax_narrow_sorts(dtype: str, engine: str):
+    """The JAX package's sort, sort_kv and argsort of ``_narrow_keys``
+    under its Pallas engine (interpret mode on the CPU) or its default."""
+    from radix_sort_tpu.config import SortConfig as JaxSortConfig
+
+    keys = jnp.asarray(_narrow_keys(NARROW[dtype], NARROW_SORT_N, 17))
+    vals = jnp.arange(NARROW_SORT_N, dtype=jnp.int32) * 7
+    kw = ({"config": JaxSortConfig(bits_per_pass=8, block_elems=TILE,
+                                   engine="pallas")}
+          if engine == "pallas" else {})
+    jk, jv = rst.sort_kv(keys, vals, **kw)
+    return (np.asarray(rst.sort(keys, **kw)), np.asarray(jk), np.asarray(jv),
+            np.asarray(rst.argsort(keys, **kw)))
+
+
+@pytest.mark.parametrize("jax_engine", ["pallas", "default"])
+@pytest.mark.parametrize("engine", ["auto", "radix", "merge", "pallas"])
+@pytest.mark.parametrize("dtype", list(NARROW))
+def test_narrow_sorts_match_jax_bit_for_bit(dtype, engine, jax_engine):
+    """sort, sort_kv and argsort of narrow keys, under every engine name
+    that takes the narrow pass, equal the JAX package's bit for bit: its
+    Pallas engine (interpret mode on the CPU) and its default engine."""
+    keys = _narrow_keys(NARROW[dtype], NARROW_SORT_N, 17)
+    vals = torch.arange(NARROW_SORT_N, dtype=torch.int32) * 7
+    tk = tdt.tensor_from_numpy(keys, "cpu")
+    js, jk, jv, ja = _jax_narrow_sorts(dtype, jax_engine)
+    ko, vo = rtt.sort_kv(tk, vals, engine=engine)
+    for got, want in ((rtt.sort(tk, engine=engine), js), (ko, jk)):
+        np.testing.assert_array_equal(
+            tdt.tensor_to_numpy(got).view(np.uint8), want.view(np.uint8))
+    np.testing.assert_array_equal(vo.numpy(), jv)
+    np.testing.assert_array_equal(rtt.argsort(tk, engine=engine).numpy(), ja)
+
+
+def test_narrow_key_plane_checks():
+    """The wrappers take int32 planes and narrow key planes of the five
+    dtypes with a kind; a narrow plane only as the key plane itself, and
+    alone in pass_histograms."""
+    k8 = torch.arange(300, dtype=torch.uint8)
+    k16 = torch.arange(300, dtype=torch.int16)
+    x32 = torch.arange(300, dtype=torch.int32)
+    counts = cr.pass_histograms((k8,), (1,), 256, kind="u")[0]
+    with pytest.raises(ValueError):  # no such kind
+        cr.onesweep_pass(k8, (k8,), counts, 256, TILE, kind="x")
+    with pytest.raises(ValueError):  # an int32 word plane is read as bits
+        cr.onesweep_pass(x32, (x32,), counts, 256, TILE, kind="i")
+    with pytest.raises(ValueError):  # a narrow plane that is not the key's
+        cr.onesweep_pass(k8, (k8.clone(),), counts, 256, TILE, kind="u")
+    with pytest.raises(ValueError):  # a shift past the key's bits
+        cr.onesweep_pass(k8, (k8,), counts, 256, TILE, 8, kind="u")
+    with pytest.raises(ValueError):
+        cr.pass_histograms((k16, x32), (2, 1), 256, kind="i")
+    with pytest.raises(ValueError):  # a third 8-bit pass of a 16-bit key
+        cr.pass_histograms((k16,), (3,), 256, kind="i")
+    with pytest.raises(ValueError):
+        cr.pass_histograms((torch.zeros(8, dtype=torch.bfloat16),), (2,),
+                           256, kind="f")
+    with pytest.raises(ValueError):
+        cr.pass_histograms((torch.zeros(8, dtype=torch.int64),), (1,), 256)
+    # the narrow plane moves at its width, the int32 payload as before
+    kf = k8.flip(0).contiguous()
+    (ko, xo), _ = cr.onesweep_pass(kf, (kf, x32), counts, 256, TILE,
+                                   kind="u")
+    assert ko.dtype == torch.uint8 and xo.dtype == torch.int32
+    np.testing.assert_array_equal(xo.numpy(),
+                                  np.argsort(kf.numpy(), kind="stable"))
+
+
+# ---------------------------------------------- narrow planes on the card
+
+def _narrow_on(device, dtype, n: int, dist: str, seed: int = 0):
+    """Narrow keys on the card: ``_narrow_keys`` ("random", "range"), or
+    long runs of equal keys: "few" (8 distinct values, shuffled), "runs"
+    (runs of 5000 equal keys, their values sorted, then reversed)."""
+    d = np.dtype(dtype)
+    rng = np.random.default_rng(seed)
+    if dist in ("random", "range"):
+        keys = _narrow_keys(d, n, seed, dist)
+    else:
+        pool = _narrow_keys(d, 4096, seed)[rng.choice(4096, 8,
+                                                      replace=False)]
+        if dist == "few":
+            keys = pool[rng.integers(0, 8, n)]
+        else:
+            order = np.argsort(tdt.np_to_sortable_unsigned(pool),
+                               kind="stable")
+            ramp = np.concatenate([order, order[::-1]])
+            keys = pool[ramp[(np.arange(n) // 5000) % ramp.size]]
+    return tdt.as_container(tdt.tensor_from_numpy(keys, device))
+
+
+def _narrow_modes(k, kind, planes, radix, tile, shift, threads=256):
+    """A narrow key plane's pass in look-back and base-table mode, and the
+    plain version, with destinations."""
+    counts = torch.bincount(cr._digits(k, radix, shift, kind).long(),
+                            minlength=radix).int()
+    lb = cr.onesweep_pass(k, planes, counts, radix, tile, shift,
+                          with_dest=True, threads=threads, kind=kind)
+    base = cr._stitch_block_base(cr.digit_histogram_plain(k, radix, tile,
+                                                          shift, kind))
+    bt = cr.rank_scatter(k, planes, base, radix, tile, shift, with_dest=True,
+                         threads=threads, kind=kind)
+    plain = cr.onesweep_pass_plain(k, planes, radix, tile, shift, True, kind)
+    return lb, bt, plain
+
+
+def _assert_stable(k, kind, radix, shift, planes_out, payload_pos):
+    """The payload at payload_pos (an iota) came out as the stable
+    permutation by digit."""
+    perm = planes_out[payload_pos].long()
+    d_in = cr._digits(k, radix, shift, kind)
+    d_out = d_in[perm]
+    assert bool((d_out[1:] >= d_out[:-1]).all())
+    tie = d_out[1:] == d_out[:-1]
+    assert bool((~tie | (perm[1:] > perm[:-1])).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [2048, 4096, 8192])
+@pytest.mark.parametrize("radix", [16, 256])
+@pytest.mark.parametrize("dtype", list(NARROW))
+def test_cuda_narrow_pass_kernels_match_plain(cuda_device, dtype, radix,
+                                              tile):
+    """pass_histograms and every pass of a narrow KV sort, both modes, at a
+    ragged n, against the plain versions bit for bit."""
+    d = np.dtype(NARROW[dtype])
+    n = (1 << 20) + 77
+    k = _narrow_on(cuda_device, d, n, "random")
+    iota = torch.arange(n, dtype=torch.int32, device=cuda_device)
+    bits = radix.bit_length() - 1
+    passes = -(-8 * d.itemsize // bits)
+    before = cr.narrow_launch_counts()[f"pass_histograms_{8 * d.itemsize}bit"]
+    hist = cr.pass_histograms((k,), (passes,), radix, kind=d.kind)
+    assert cr.narrow_launch_counts()[
+        f"pass_histograms_{8 * d.itemsize}bit"] == before + 1
+    torch.testing.assert_close(
+        hist, cr.pass_histograms_plain((k,), (passes,), radix, d.kind),
+        rtol=0, atol=0)
+    for j in range(passes):
+        lb, bt, plain = _narrow_modes(k, d.kind, (k, iota, iota * 3), radix,
+                                      tile, j * bits)
+        _assert_same(lb, plain)
+        _assert_same(bt, plain)
+        assert lb[0][0].dtype == k.dtype
+        _assert_stable(k, d.kind, radix, j * bits, lb[0], 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dist", ["few", "runs", "range", "off_boundary"])
+@pytest.mark.parametrize("dtype", list(NARROW))
+def test_cuda_narrow_pass_equal_runs(cuda_device, dtype, dist):
+    """Long runs of equal keys (few distinct keys, sorted and reversed
+    runs, Range), and a key plane that starts off a 4-byte boundary (the
+    key-by-key loads): the payload comes out as the stable permutation,
+    and both modes equal the plain version."""
+    d = np.dtype(NARROW[dtype])
+    n = (1 << 21) + 5
+    if dist == "off_boundary":
+        k = _narrow_on(cuda_device, d, n + 1, "few", seed=3)[1:]
+    else:
+        k = _narrow_on(cuda_device, d, n, dist, seed=2)
+    iota = torch.arange(n, dtype=torch.int32, device=cuda_device)
+    for shift in range(0, 8 * d.itemsize, 8):
+        lb, bt, plain = _narrow_modes(k, d.kind, (iota, k), 256, 8192, shift)
+        _assert_same(lb, plain)
+        _assert_same(bt, plain)
+        _assert_stable(k, d.kind, 256, shift, lb[0], 0)
+        _assert_same(((lb[0][1],), None), ((k[lb[0][0].long()],), None))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["u8", "f16"])
+def test_cuda_narrow_pass_17_planes(cuda_device, dtype):
+    """More planes than one launch takes: the narrow key plane goes in the
+    look-back launch and the 17th plane in a base-table launch from its
+    tile bases, reading the same narrow digit plane."""
+    d = np.dtype(NARROW[dtype])
+    n = (1 << 20) + 77
+    k = _narrow_on(cuda_device, d, n, "random", seed=4)
+    iota = torch.arange(n, dtype=torch.int32, device=cuda_device)
+    planes = (k,) + tuple(iota + i for i in range(_build.lib()
+                                                  .rst_max_planes()))
+    before = dict(cr.launch_counts())
+    lb, bt, plain = _narrow_modes(k, d.kind, planes, 256, 8192, 0)
+    after = cr.launch_counts()
+    assert after["onesweep_pass"] == before["onesweep_pass"] + 1
+    assert after["rank_scatter"] == before["rank_scatter"] + 3
+    _assert_same(lb, plain)
+    _assert_same(bt, plain)
+
+
+@pytest.mark.cuda
+def test_cuda_narrow_pass_64bit_status_words(cuda_device):
+    """n >= 2^30 takes the 64-bit status words with a narrow key plane too:
+    the key bits come out in image order, stably, with the histogram's
+    counts (checked on the card)."""
+    n = (1 << 30) + 4099
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(11)
+    k = torch.randint(-2**15, 2**15, (n,), dtype=torch.int16,
+                      device=cuda_device, generator=gen).view(torch.float16)
+    counts = cr.pass_histograms((k,), (2,), 256, kind="f")
+    iota = torch.arange(n, dtype=torch.int32, device=cuda_device)
+    (ok, oi), _ = cr.onesweep_pass(k, (k, iota), counts[1], 256, 8192, 8,
+                                   kind="f")
+    d = cr._digits(ok, 256, 8, "f")
+    assert bool((d[1:] >= d[:-1]).all())
+    torch.testing.assert_close(torch.bincount(d.long(), minlength=256).int(),
+                               counts[1], rtol=0, atol=0)
+    same = d[1:] == d[:-1]
+    assert bool((~same | (oi[1:] > oi[:-1])).all())
+    assert bool((k.view(torch.int16)[oi.long()] == ok.view(torch.int16))
+                .all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(NARROW))
+def test_cuda_narrow_sort_kv_matches_cpu_sort(cuda_device, dtype):
+    """sort_kv of narrow keys on the card equals the same sort on the CPU
+    (the plain versions): one pass_histograms and one onesweep_pass a byte
+    of key, all with the narrow key plane, and one host read."""
+    d = np.dtype(NARROW[dtype])
+    n = (1 << 22) + 5
+    keys = _narrow_keys(d, n, 9)
+    iota = np.arange(n, dtype=np.int32)
+    cr.reset_launch_counts()
+    reads = stream.host_reads
+    gk, gv = rtt.sort_kv(tdt.tensor_from_numpy(keys, cuda_device),
+                         torch.from_numpy(iota).to(cuda_device))
+    torch.cuda.synchronize()
+    assert stream.host_reads == reads + 1
+    bits = 8 * d.itemsize
+    assert cr.launch_counts()["pass_histograms"] == 1
+    narrow = cr.narrow_launch_counts()
+    assert narrow[f"pass_histograms_{bits}bit"] == 1
+    assert narrow[f"onesweep_pass_{bits}bit"] == d.itemsize
+    assert cr.launch_counts()["onesweep_pass"] == d.itemsize
+    ck, cv = rtt.sort_kv(tdt.tensor_from_numpy(keys, "cpu"),
+                         torch.from_numpy(iota))
+    _bits_equal(gk.cpu(), ck)
+    np.testing.assert_array_equal(gv.cpu().numpy(), cv.numpy())

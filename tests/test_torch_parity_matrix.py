@@ -526,23 +526,39 @@ class _Spy:
 
 
 @pytest.mark.parametrize("dtype,passes", [(np.uint8, 1), (np.int8, 1),
-                                          (np.float16, 2), (np.int16, 2)],
-                         ids=["u8", "i8", "f16", "i16"])
+                                          (np.float16, 2), (np.int16, 2),
+                                          (np.uint16, 2)],
+                         ids=["u8", "i8", "f16", "i16", "u16"])
 def test_narrow_keys_run_one_pass_a_byte(dtype, passes, monkeypatch):
     """An 8-bit key sort runs one radix pass and a 16-bit one two: one
     pass_histograms over one key plane for that many passes, and one
     onesweep_pass each (spied on the kernels' plain versions, which the
-    wrappers run on the CPU)."""
+    wrappers run on the CPU).  The key plane handed to both is the
+    caller's keys at their own 1- or 2-byte width (uint16 as its int16
+    view), with the key's kind, and no transform to a sortable image runs
+    on the way (``dtypes.to_sortable`` / ``from_sortable`` are not
+    called): the kernels take the image in registers."""
     hist = _Spy(cr.pass_histograms_plain)
     sweep = _Spy(cr.onesweep_pass_plain)
+    transforms = [_Spy(tdt.to_sortable), _Spy(tdt.from_sortable)]
     monkeypatch.setattr(cr, "pass_histograms_plain", hist)
     monkeypatch.setattr(cr, "onesweep_pass_plain", sweep)
+    monkeypatch.setattr(tdt, "to_sortable", transforms[0])
+    monkeypatch.setattr(tdt, "from_sortable", transforms[1])
     keys = _keys(dtype, seed=21)
     tk, tv = rtt.sort_kv(_t(keys), torch.arange(N, dtype=torch.int32))
     assert len(hist.calls) == 1
     planes, pass_counts = hist.calls[0][0], hist.calls[0][1]
     assert len(planes) == 1 and tuple(pass_counts) == (passes,)
     assert len(sweep.calls) == passes
+    want = tdt.container_dtype(keys.dtype)
+    kind = np.dtype(dtype).kind
+    assert planes[0].dtype == want
+    assert planes[0].element_size() == np.dtype(dtype).itemsize
+    assert hist.calls[0][3] == kind
+    for call in sweep.calls:
+        assert call[0].dtype == want and call[1][0].dtype == want
+    assert [t.calls for t in transforms] == [[], []]
     jk, jv = rst.sort_kv(jnp.asarray(keys), jnp.arange(N, dtype=jnp.int32))
     _bits_equal(tdt.tensor_to_numpy(tk), jk)
     _bits_equal(tv.numpy(), jv)
