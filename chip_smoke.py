@@ -10,7 +10,10 @@ path gives it (the onesweep pass in look-back mode at u32 KV 2^27 on
 RandomDistributed and Zeros, u64 KV 2^27, u8 and f16 KV 2^27 on the
 caller's narrow key planes with their base-table launch beyond 16 planes
 and a view off a 4-byte boundary, a ragged n, 17 planes and the
-partition's pass; ``pass_histograms`` at 2^27 for 8-, 16-, 32- and 64-bit
+partition's pass; the sort's plan at u32 KV 2^27, launch by launch against
+the plain plan: a filled pass, a filled pass before a running one, and a
+sort that runs no pass, whose last launch copies its input into new
+storage; ``pass_histograms`` at 2^27 for 8-, 16-, 32- and 64-bit
 keys, the 8- and 16-bit ones on the caller's keys;
 ``rank_scatter`` in base-table mode at 2^22; ``tile_sort`` and every
 ``merge_level`` of a 2^25 merge sort on RandomDistributed, Zeros, Range and
@@ -26,8 +29,14 @@ launch counters set to 0 just before it and read just after:
     ``datasets`` distributions, u64 keys at 2^27, and ``sort`` u32 key-only
     at 2^25, each timed beside ``engine="torch_sort"`` (torch.sort);
   - ``[profile]``: a u32 KV 2^27 sort's launches (1 ``pass_histograms``,
-    4 ``onesweep_pass``), host reads (1) and device time by kernel, and the
+    4 ``onesweep_pass``), host reads (0) and device time by kernel, and the
     idle share of back-to-back u32 key-only sorts at 2^25;
+  - ``[nosync]``: ``sort``, ``sort_kv`` and ``argsort`` of u32, u64, u8
+    and f16 keys at 2^20 and 2^27 on RandomDistributed and Zeros, a
+    1000-bucket ``stable_partition(method="stream")``,
+    ``compact_mask(method="stream")``, config 3's filter -> aggregate and
+    config 4's join, each under ``torch.cuda.set_sync_debug_mode("error")``:
+    a host sync fails the run;
   - config 3: ``filter_expr(k < 500)`` → ``hash_aggregate(count, sum)`` over
     2^26 rows, checked against ``np.bincount``;
   - config 4: ``hash_join`` of a 2^20-row probe against a 2^18-row unique
@@ -36,8 +45,9 @@ launch counters set to 0 just before it and read just after:
   - ``[dtypes]``: ``sort_kv`` of uint8, int8 and float16 keys + int32 iota
     at 2^27 (RandomDistributed made on the card, and uint8 Zeros) on the
     narrow pass, each in one ``pass_histograms`` and one ``onesweep_pass``
-    a byte of key, all with the caller's 8- or 16-bit key plane (none
-    where one digit fills the pass), with no ``to_sortable`` /
+    a byte of key, all with the caller's 8- or 16-bit key plane (a pass
+    that one digit fills is launched and returns at once), with no
+    ``to_sortable`` /
     ``from_sortable`` on the way, checked like ``[sort]`` with every key
     against a counting sort of the sortable images, ``sort`` and
     ``argsort`` equal to its keys and payload, all three timed beside
@@ -666,6 +676,7 @@ def phase_onesweep(dev, rt, cr, note, res):
     check("u8 KV n=2^27-3 view off a 4-byte boundary", k8[3:],
           (k8[3:], iota[3:]))
     del k8, k16, counts
+    phase_plan(dev, cr, tile, iota, note)
     m = n - 777
     x = torch.from_numpy(np.random.default_rng(1).integers(
         -2**31, 2**31, m).astype(np.int32)).to(dev)
@@ -676,6 +687,70 @@ def phase_onesweep(dev, rt, cr, note, res):
     check("partition pass n=2^27-777 (ids not moved, 2 planes)", ids,
           (iota[:m], x))
     del x, ids, iota
+
+
+def phase_plan(dev, cr, tile: int, iota, note):
+    """The sort's plan (csrc/radix.cu, ``Plan``) at u32 KV 2^27: the
+    launches of a sort's passes, each holding IN, OUT and TMP bit for bit
+    against the plain plan after it: a filled pass (it returns at once), a
+    filled pass before a running one (pass 0 skips, pass 1 reads IN and
+    writes OUT), and a sort that runs no pass (the last launch copies IN
+    to OUT, whose storage is its own).  The filled pass's launch and the
+    copy are timed."""
+    n = iota.numel()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    filled_first = (torch.randint(0, 1 << 23, (n,), dtype=torch.int32,
+                                  device=dev, generator=gen) << 8) | 0x5A
+    zeros = torch.zeros(n, dtype=torch.int32, device=dev)
+    for what, keys, launches, want in (
+            ("a filled pass (Zeros, pass 1 of 4)", zeros, (1,),
+             [False] * 4),
+            ("a filled pass before a running one (low byte filled; "
+             "passes 0 and 1)", filled_first, (0, 1), [False] + [True] * 3),
+            ("no pass runs (Zeros, passes 0-3: the last copies IN to OUT)",
+             zeros, (0, 1, 2, 3), [False] * 4)):
+        planes = (keys, iota)
+        table = cr.pass_histograms((keys,), (4,), 256)
+        runs = cr.plan_runs(table, (keys,), 4, 256)
+        require(runs == want, f"plan of {what}: runs {runs}, want {want}")
+        card, plain = ([planes] + [tuple(torch.zeros_like(q) for q in planes)
+                                   for _ in range(2)] for _ in range(2))
+        for p in launches:
+            plan = cr.PassPlan(table, p, (keys,), 4, card[2])
+            cr.onesweep_pass(keys, planes, table[p], 256, tile, 8 * p,
+                             outs=card[1], plan=plan)
+            cr.onesweep_pass_plain(keys, planes, 256, tile, 8 * p,
+                                   plan=plan._replace(tmp=plain[2]),
+                                   outs=plain[1])
+        err = max(max_abs_err(a, b) for sa, sb in zip(card[1:], plain[1:])
+                  for a, b in zip(sa, sb))
+        held = {q.untyped_storage().data_ptr() for q in planes}
+        require(err == 0 and not any(
+            o.untyped_storage().data_ptr() in held for o in card[1]),
+                f"onesweep_pass plan: {what} disagrees (max_abs_err {err}) "
+                f"or OUT shares the input's storage")
+        if len(launches) == 4:
+            require(all(torch.equal(a, b) for a, b in zip(card[1], planes)),
+                    f"{what}: OUT is not the input")
+        note("onesweep_pass", err)
+        print(f"[kernels] onesweep_pass plan u32 KV n=2^27, {what}: runs "
+              f"{runs}; IN, OUT and TMP bit-exact against the plain plan "
+              f"after each launch, OUT in its own storage", flush=True)
+        del card, plain
+    table = cr.pass_histograms((zeros,), (4,), 256)
+    outs = (torch.empty_like(zeros), torch.empty_like(iota))
+
+    def launch(p):
+        return lambda: cr.onesweep_pass(
+            zeros, (zeros, iota), table[p], 256, tile, 8 * p, outs=outs,
+            plan=cr.PassPlan(table, p, (zeros,), 4, outs))
+
+    skip, copy = device_ms(launch(1)), device_ms(launch(3))
+    print(f"[kernels] onesweep_pass u32 KV n=2^27 on Zeros: a filled pass's "
+          f"launch {skip:.5f} ms (every CTA returns after the plan); the "
+          f"last launch's copy of IN to OUT {copy:.5f} ms, bound "
+          f"{bound_ms(16 * n):.5f} ms", flush=True)
 
 
 def check_sorted_kv(rt, keys_in, keys_out, perm, host_keys, what,
@@ -791,7 +866,7 @@ def phase_dtypes(dev, rt):
         names = ("pass_histograms", "onesweep_pass",
                  f"pass_histograms_{bits}bit", f"onesweep_pass_{bits}bit")
         launched = {k: after[k] - before[k] for k in names}
-        passes = 0 if name == "Zeros" else d.itemsize
+        passes = d.itemsize  # launched, filled or not (Zeros: none runs)
         want_launches = dict(zip(names, (1, passes, 1, passes)))
         require(launched == want_launches,
                 f"{what}: launches {launched}, want {want_launches}: 1 "
@@ -925,13 +1000,17 @@ def phase_dtypes_query(dev, rt):
     del t, cols
 
 
+PROFILE_SESSIONS = 6
+
+
 def _profile(fn, iters: int, complete=lambda rows: True) -> list:
     """Device-side profiler events of ``iters`` calls of ``fn``.  A session
     counts if it recorded device time and ``complete(rows)`` holds.
     torch.profiler on an H100 now and then returns a profiling session
     short of rows (none at all, or 16 of a merge sort's 33 merge_level
-    rows); such a session is printed and taken again, three at most."""
-    for attempt in range(1, 4):
+    rows), sometimes several in a row; such a session is printed and
+    taken again after a pause, PROFILE_SESSIONS at most."""
+    for attempt in range(1, PROFILE_SESSIONS + 1):
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -943,8 +1022,9 @@ def _profile(fn, iters: int, complete=lambda rows: True) -> list:
             return rows
         print(f"[profile] torch.profiler session {attempt}: {len(rows)} "
               f"device rows, short; profiling again", flush=True)
-    require(rows, "profiler recorded no device time")
-    return rows
+        torch.cuda.empty_cache()
+        time.sleep(1.0)
+    require(False, f"torch.profiler short in {PROFILE_SESSIONS} sessions")
 
 
 def _ms(rows, iters: int, pred=lambda e: True) -> float:
@@ -953,7 +1033,7 @@ def _ms(rows, iters: int, pred=lambda e: True) -> float:
 
 def phase_profile(dev, rt):
     """A u32 KV sort at 2^27: its launches and host reads (one
-    pass_histograms, four onesweep passes, one read), and torch.profiler's
+    pass_histograms, four onesweep passes, no read), and torch.profiler's
     device time a sort by kernel.  Then the card's idle share over
     back-to-back u32 key-only sorts at 2^25: 1 - (profiled device time) /
     (event time of the same loop without the profiler)."""
@@ -973,7 +1053,7 @@ def phase_profile(dev, rt):
             "exclusive_scan": 0, "rank_scatter": 0}
     require(all(delta[k] == v for k, v in want.items()),
             f"a u32 KV 2^27 sort launched {delta}, expected {want}")
-    require(stream.host_reads - reads == 1, "a sort read the host "
+    require(stream.host_reads - reads == 0, "a sort read the host "
             f"{stream.host_reads - reads} times")
     iters = 3
     rows = _profile(lambda: rt.sort_kv(keys, iota), iters)
@@ -985,7 +1065,7 @@ def phase_profile(dev, rt):
           f"{total:.4f} ms a sort: pass_histograms {hist:.4f}, 4 onesweep "
           f"passes {passes:.4f} ({passes / 4:.4f} each), memsets "
           f"{memset:.4f}, other {total - hist - passes - memset:.4f}; "
-          f"launches {delta}; host reads a sort 1", flush=True)
+          f"launches {delta}; host reads a sort 0", flush=True)
     del keys, iota
 
     n = 1 << 25
@@ -1002,6 +1082,115 @@ def phase_profile(dev, rt):
     print(f"[profile] sort u32 key-only 2^25, {sorts} back to back: "
           f"{wall:.4f} ms a sort (events), device busy {busy:.4f} ms, idle "
           f"share {1 - busy / wall:.4f}", flush=True)
+
+
+# the [nosync] phase's sizes: the sorts' (log2), then the partition's and
+# compaction's rows, config 3's (log2) and config 4's probe (log2)
+NOSYNC_SORTS = (20, 27)
+NOSYNC_ROWS = 1 << 26
+NOSYNC_CONFIGS = (26, 20)
+
+
+def no_sync(what: str, fn):
+    """fn() under torch.cuda.set_sync_debug_mode("error"): a host sync
+    inside raises (the mode is reset to its old value, the error kept)."""
+    torch.cuda.synchronize()
+    old = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn()
+    except RuntimeError as e:
+        raise SmokeFailure(f"[nosync] {what}: {e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode(old)
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_nosync(dev, rt):
+    """Each operation once under torch.cuda.set_sync_debug_mode("error"),
+    so any host sync fails the run: sort, sort_kv and argsort of u32, u64,
+    u8 and f16 keys at 2^20 and 2^27 on RandomDistributed and Zeros (the
+    Zeros sorts copy in their last launch), a 1000-bucket
+    stable_partition(method="stream"), compact_mask(method="stream"),
+    config 3's filter -> aggregate and config 4's join.  Inputs are made
+    before the mode is set; the sorts and the partition are checked on the
+    card after it."""
+    from radix_sort_tpu_torch.ops import partition
+
+    tbc = script("torch_baseline_configs")
+    done = []
+    for log2n in NOSYNC_SORTS:
+        n = 1 << log2n
+        iota = torch.arange(n, dtype=torch.int32, device=dev)
+        for dtype in (np.uint32, np.uint64, np.uint8, np.float16):
+            for name in ("RandomDistributed", "Zeros"):
+                keys = rt.datasets_device.generate(name, dtype, n, seed=7,
+                                                   device=dev)
+                what = f"{np.dtype(dtype).name} {name} 2^{log2n}"
+                ks = no_sync(f"sort {what}", lambda: rt.sort(keys))
+                ko, perm = no_sync(f"sort_kv {what}",
+                                   lambda: rt.sort_kv(keys, iota))
+                pa = no_sync(f"argsort {what}", lambda: rt.argsort(keys))
+                so = rt.dtypes.signed_order(rt.dtypes.to_sortable(ko))
+                c = rt.dtypes.as_container
+                require(bool((so[1:] >= so[:-1]).all())
+                        and torch.equal(bits_of(c(ks)), bits_of(c(ko)))
+                        and torch.equal(pa, perm)
+                        and torch.equal(bits_of(c(keys)[perm.long()]),
+                                        bits_of(c(ko))),
+                        f"[nosync] {what}: sort, sort_kv and argsort "
+                        f"disagree or are not sorted")
+                done.append(f"sort/sort_kv/argsort {what}")
+                del keys, ks, ko, perm, pa, so
+        del iota
+    n = NOSYNC_ROWS
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    ids = torch.randint(0, 1000, (n,), dtype=torch.int32, device=dev,
+                        generator=gen)
+    iota = torch.arange(n, dtype=torch.int32, device=dev)
+    (out,), counts, _ = no_sync(
+        f"stable_partition 1000 buckets, {n} rows",
+        lambda: partition.stable_partition(ids, (iota,), 1000,
+                                           method="stream"))
+    srt = torch.sort(ids, stable=True)
+    require(torch.equal(out, srt.indices.to(torch.int32))
+            and int(counts.sum()) == n,
+            "[nosync] stable_partition: not the stable partition")
+    mask = (ids & 1) == 0
+    for label, m in (("mixed", mask), ("all kept", torch.ones_like(mask))):
+        (co,), kept = no_sync(f"compact_mask {label}, {n} rows",
+                              lambda: partition.compact_mask(
+                                  m, (iota,), method="stream"))
+        want = torch.nonzero(m).view(-1).to(torch.int32)
+        require(torch.equal(co[:want.numel()], want)
+                and int(kept) == want.numel(),
+                f"[nosync] compact_mask {label}: wrong rows")
+    done += [f"stable_partition 1000 buckets, {n} rows",
+             f"compact_mask mixed and all kept, {n} rows"]
+    del ids, iota, out, counts, srt, mask, co
+    log3, log4 = NOSYNC_CONFIGS
+    t3 = rt.Table.from_numpy(tbc.config3_inputs(log3), device=dev)
+    r3 = no_sync(f"config 3 filter -> aggregate 2^{log3}",
+                 lambda: tbc.config3_query(t3, rt.DEFAULT_CONFIG))
+    pcols, bcols = tbc.config4_inputs(log4)
+    probe = rt.Table.from_numpy(pcols, device=dev)
+    build = rt.Table.from_numpy(bcols, device=dev)
+    r4, stats = no_sync(f"config 4 join 2^{log4}",
+                        lambda: tbc.config4_query(probe, build,
+                                                  rt.DEFAULT_CONFIG))
+    k3 = t3.to_numpy()["k"]
+    want3 = np.bincount(k3[k3 < 500], minlength=500)
+    require(np.array_equal(r3.to_numpy()["n"], want3[want3 > 0]),
+            "[nosync] config 3: wrong counts")
+    require(int(stats["match_count"]) == int(np.isin(pcols["k"],
+                                                      bcols["k"]).sum()),
+            "[nosync] config 4: wrong match count")
+    done += [f"config 3 filter -> aggregate 2^{log3}",
+             f"config 4 join 2^{log4}"]
+    print(f"[nosync] no host sync (torch.cuda.set_sync_debug_mode('error')) "
+          f"in: {'; '.join(done)}", flush=True)
 
 
 def phase_merge_profile(dev, rt):
@@ -1978,6 +2167,7 @@ def main() -> int:
     # [dtypes] sorts 8- and 16-bit keys on the narrow pass
     radix = run_path("radix", (lambda: phase_sort(dev, rt),
                                lambda: phase_profile(dev, rt),
+                               lambda: phase_nosync(dev, rt),
                                lambda: phase_config3(dev, rt),
                                lambda: phase_config4(dev, rt),
                                lambda: phase_dtypes(dev, rt)),

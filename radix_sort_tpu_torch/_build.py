@@ -33,19 +33,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_PP = ctypes.POINTER(_P)  # a host array of device pointers
 _SIGNATURES = {
     "rst_max_planes": ([], _I),
     "rst_scan_scratch_bytes": ([_LL], _LL),
     "rst_digit_histogram": ([_P, _LL, _I, _I, _I, _I, _P, _LL, _LL, _P], _I),
     "rst_exclusive_scan": ([_P, _LL, _P, _P, _LL, _P], _I),
-    "rst_rank_scatter": ([_P, _LL, _I, _I, _I, _I, _I, _I, _P,
-                          ctypes.POINTER(_P), ctypes.POINTER(_P), _I, _P, _P],
-                         _I),
+    "rst_rank_scatter": ([_PP, _LL, _I, _I, _I, _I, _I, _I, _P, _PP, _PP,
+                          _PP, _I, _P, _P, _I, _I, _I, _PP, _P], _I),
     "rst_pass_histograms": ([_P, _I, _P, _I, _LL, _I, _I, _I, _P, _P], _I),
     "rst_onesweep_scratch_bytes": ([_LL, _I, _I], _LL),
     "rst_zero": ([_P, _LL, _P], _I),
-    "rst_onesweep_pass": ([_P, _LL, _I, _I, _I, _I, _I, _I, _P, _P, _LL,
-                           ctypes.POINTER(_P), ctypes.POINTER(_P), _I, _P, _P,
+    "rst_onesweep_pass": ([_PP, _LL, _I, _I, _I, _I, _I, _I, _P, _P, _LL,
+                           _PP, _PP, _PP, _I, _P, _P, _P, _I, _I, _I, _PP,
                            _P], _I),
     "rst_merge_tile": ([], _I),
     "rst_tile_sort": ([_P, _LL, _P, _P], _I),

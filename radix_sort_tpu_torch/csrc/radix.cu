@@ -3,13 +3,15 @@
 // A sort (or a partition) is a onesweep LSD radix sort over int32 planes:
 //
 //   pass_histograms  the digit counts of every pass, (P, R), from one read
-//                    of each key word plane; the host reads them once to
-//                    skip the passes one digit fills
+//                    of each key word plane
 //   rank_scatter     one launch a pass in look-back mode: each tile ranks
 //                    its elements, finds its global digit offsets by
 //                    decoupled look-back over the tiles before it, and
 //                    scatters the digit plane and every payload plane
-//                    through a shared-memory staging tile
+//                    through a shared-memory staging tile.  Every CTA
+//                    derives the sort's plan from the (P, R) table first
+//                    (Plan): a pass that one digit fills returns at once,
+//                    so the host launches every pass and reads nothing
 //
 // The three-launch pass of the JAX package's contract stays for rank_pass
 // and the harness's per-phase timings:
@@ -43,10 +45,28 @@ namespace {
 constexpr int kMaxRadix = 256;
 constexpr int kMaxPlanes = 16;
 
+// The buffer sets of a sort's planes: IN (the planes the sort was given,
+// never written), OUT (where the sort's result lands) and TMP.  A launch
+// reads one set and writes another, as the plan says (Plan); with no plan
+// it reads IN and writes OUT.
+enum BufferSet { kIn = 0, kOut = 1, kTmp = 2, kSets = 3 };
+
 struct Planes {
-  const int32_t* in[kMaxPlanes];
-  int32_t* out[kMaxPlanes];
+  int32_t* buf[kSets][kMaxPlanes];
 };
+
+// The digit plane (the key plane a pass takes its digit from) in each set;
+// the same pointer in all three when it does not move (a partition's ids).
+struct DigitPlanes {
+  const void* buf[kSets];
+};
+
+// d.buf[set] by constant indices: a kernel parameter indexed at run time
+// is copied to the stack.
+__device__ __forceinline__ const void* digit_plane(const DigitPlanes& d,
+                                                   int set) {
+  return set == kIn ? d.buf[kIn] : set == kOut ? d.buf[kOut] : d.buf[kTmp];
+}
 
 // The image of a narrow key, the bits whose unsigned order is the key
 // order: key ^ pos where the key's top bit is clear, key ^ neg where it is
@@ -616,6 +636,13 @@ pass_histograms_kernel(HistPlanes hp, int64_t n, int bits, KeyKind kk,
 //     during the ranking gained nothing.
 //   - More planes than one launch takes: the look-back launch writes its
 //     tile bases, and later launches run in base-table mode from them.
+//   - The plan (Plan).  The host launches every pass of a sort; each CTA
+//     first reads key 0's digit of every pass and that digit's total (warp
+//     0, P lanes, while warp 1 takes the tile id), and a CTA of a filled pass
+//     returns before it ranks, so the host never waits on the table.  It
+//     chooses the buffer sets too: the passes that run ping-pong between
+//     OUT and TMP so that the last writes OUT, and a sort that runs no
+//     pass copies IN to OUT in its last launch.
 //   - Tiles.  The sort's default, 8192 elements of 256 threads, takes
 //     ~70 KB of shared memory (the lane masks share the staging tile's
 //     space) and two CTAs an SM; it amortizes the per-tile barriers and
@@ -696,6 +723,101 @@ struct LookBack {
   int32_t* base_out;      // (R, B) tile bases, or null
 };
 
+// The plan of a sort, decided on the card as the JAX engine decides it
+// (radix_sort_tpu/ops/pallas_stream.py:572, max(totals) == padded): pass q
+// is filled, and is the identity, when one digit holds every key, which is
+// exactly when table[q][digit_q(key 0)] == n, key 0 being element 0 of
+// the key plane pass q reads in IN (whether a pass is filled depends only
+// on the multiset of keys, which every pass keeps).  Every CTA of every
+// launch of the sort derives the whole plan from P loads of the table and
+// at most two of key 0, so no launch waits on another and the host reads
+// nothing.  Of the m passes that run, the k-th reads IN (k = 0) or what
+// the one before it wrote, and writes OUT when m - 1 - k is even, else
+// TMP: the last lands in OUT.  A filled pass returns after the prologue;
+// when no pass runs (m = 0) the launch of the last pass copies IN to OUT,
+// so a sort never hands back its input's storage.
+constexpr int kMaxPasses = 64;  // 64-bit keys at radix 2
+
+struct Plan {
+  const int32_t* table;  // (P, R) digit totals of every pass; null: no plan
+  const void* key0[2];   // the sort's key planes in IN: passes0 passes, rest
+  int npasses;           // P
+  int passes0;
+  int pass;              // this launch's pass
+};
+
+// What one launch does, as the plan says, packed for one shared word.
+enum PassMode { kSkip = 0, kRun = 1, kCopy = 2 };
+
+__device__ __forceinline__ int pack_role(int mode, int src, int dst) {
+  return mode | src << 2 | dst << 4;
+}
+
+// Warp-wide (every lane calls it): the launch's role, written by lane 0.
+template <int KB>
+__device__ __forceinline__ void plan_role(const Plan& pl, int64_t n,
+                                          int bits, KeyKind kk, int lane,
+                                          int* role) {
+  using K = typename KeyWord<KB>::T;
+  if (pl.table == nullptr) {
+    if (lane == 0) *role = pack_role(kRun, kIn, kOut);
+    return;
+  }
+  const unsigned dmask = (1u << bits) - 1u;
+  unsigned long long run = 0ull;  // bit q: pass q runs
+  for (int q0 = 0; q0 < pl.npasses; q0 += 32) {
+    const int q = q0 + lane;
+    bool runs = false;
+    if (q < pl.npasses) {
+      const bool second = q >= pl.passes0;  // a 64-bit key's high word
+      const unsigned key =
+          second ? (unsigned)static_cast<const int32_t*>(pl.key0[1])[0]
+                 : key_image<KB>(
+                       (unsigned)static_cast<const K*>(pl.key0[0])[0], kk);
+      const int s = (second ? q - pl.passes0 : q) * bits;
+      runs = pl.table[(int64_t)q * (dmask + 1u) + ((key >> s) & dmask)] !=
+             (int32_t)n;
+    }
+    run |= (unsigned long long)__ballot_sync(0xFFFFFFFFu, runs) << q0;
+  }
+  if (lane != 0) return;
+  const int p = pl.pass;
+  const int m = __popcll(run);
+  const int k = __popcll(run & ((1ull << p) - 1ull));
+  // the destination of this pass, the k-th that runs, and of the one before
+  const int dst = ((m - 1 - k) & 1) ? kTmp : kOut;
+  const int prev = ((m - k) & 1) ? kTmp : kOut;
+  if ((run >> p) & 1ull)
+    *role = pack_role(kRun, k == 0 ? kIn : prev, dst);
+  else if (m == 0 && p == pl.npasses - 1)
+    *role = pack_role(kCopy, kIn, kOut);
+  else
+    *role = pack_role(kSkip, kIn, kIn);
+}
+
+// One CTA's tile of a plane, in to out: 16-byte vectors where the tile is
+// whole and both sides aligned.
+template <typename T, int THREADS, int TILE>
+__device__ __forceinline__ void copy_tile(const T* __restrict__ in,
+                                          T* __restrict__ out, int count,
+                                          int tid) {
+  constexpr int kVecs = TILE * (int)sizeof(T) / 16;
+  if (count == TILE && (((uintptr_t)in | (uintptr_t)out) & 15u) == 0) {
+    const int4* i4 = reinterpret_cast<const int4*>(in);
+    int4* o4 = reinterpret_cast<int4*>(out);
+    constexpr int kPer = (kVecs + THREADS - 1) / THREADS;
+    int4 v[kPer];
+#pragma unroll
+    for (int j = 0; j < kPer; ++j)
+      if (j * THREADS + tid < kVecs) v[j] = i4[j * THREADS + tid];
+#pragma unroll
+    for (int j = 0; j < kPer; ++j)
+      if (j * THREADS + tid < kVecs) o4[j * THREADS + tid] = v[j];
+  } else {
+    for (int i = tid; i < count; i += THREADS) out[i] = in[i];
+  }
+}
+
 // The kernel's shared memory, dynamic because an 8192-element tile needs
 // more than the 48 KB a kernel may declare statically.
 template <int THREADS, int ITEMS>
@@ -710,6 +832,7 @@ struct RankShared {
   int tile_prefix[kMaxRadix];
   int chunk_sum[2][kMaxRadix / 32];
   int tile_id;
+  int role;  // plan_role's
   alignas(16) unsigned short sslot[kTile];
   unsigned char sdigit[kTile];
 };
@@ -731,10 +854,9 @@ __device__ __forceinline__ unsigned packed_key(const unsigned (&kw)[N],
 // KB: the bytes of a key of the digit source (1, 2 or 4).
 template <int THREADS, int ITEMS, bool LOOKBACK, typename Word, int KB>
 __global__ void __launch_bounds__(THREADS, rank_ctas(THREADS, ITEMS, KB))
-rank_scatter_kernel(const void* __restrict__ digit_plane, int64_t n,
-                    int shift, int bits, KeyKind kk,
-                    const int32_t* __restrict__ base,
-                    LookBack lb, int64_t nblocks, Planes planes,
+rank_scatter_kernel(DigitPlanes digit, int64_t n, int shift, int bits,
+                    KeyKind kk, const int32_t* __restrict__ base,
+                    LookBack lb, Plan plan, int64_t nblocks, Planes planes,
                     int nplanes, int32_t* __restrict__ dest_out) {
   using K = typename KeyWord<KB>::T;
   constexpr int kWarps = THREADS / 32;
@@ -742,7 +864,6 @@ rank_scatter_kernel(const void* __restrict__ digit_plane, int64_t n,
   constexpr int kChunks = kMaxRadix / 32;
   static_assert(kTile >= kWarps * kMaxRadix, "the lane masks live in sval");
   static_assert(ITEMS % (4 / KB) == 0, "a round of words fills whole rounds");
-  const K* digsrc = static_cast<const K*>(digit_plane);
   extern __shared__ __align__(16) unsigned char smem[];
   auto& sh = *reinterpret_cast<RankShared<THREADS, ITEMS>*>(smem);
   int* warp_row = sh.warp_row;
@@ -761,7 +882,10 @@ rank_scatter_kernel(const void* __restrict__ digit_plane, int64_t n,
   const int warp = tid >> 5;
   const int radix = 1 << bits;
   const unsigned dmask = (unsigned)radix - 1u;
-  if (LOOKBACK && tid == 0) tile_id = (int)atomicAdd(lb.counter, 1u);
+  // warp 1 takes the tile id while warp 0 reads the plan: the two round
+  // trips overlap
+  if (LOOKBACK && tid == 32) tile_id = (int)atomicAdd(lb.counter, 1u);
+  if (warp == 0) plan_role<KB>(plan, n, bits, kk, lane, &sh.role);
   for (int i = tid; i < kWarps * radix; i += THREADS) {
     warp_row[i] = 0;
     reinterpret_cast<unsigned*>(sval)[i] = 0u;
@@ -769,9 +893,35 @@ rank_scatter_kernel(const void* __restrict__ digit_plane, int64_t n,
   if (LOOKBACK)
     for (int d = tid; d < radix; d += THREADS) gofs[d] = lb.counts[d];
   __syncthreads();
+  // The sets this launch reads and writes (plan_role's), read from shared
+  // memory where they are used, so that no register holds them through
+  // the ranking (the 8192-key int32 instance has none to spare).
+  auto role_now = [&]() {
+    return *reinterpret_cast<volatile int*>(&sh.role);
+  };
+  auto src_of = [](int role) { return (role >> 2) & 3; };
+  auto dst_of = [](int role) { return role >> 4; };
+  const int role = role_now();
+  if ((role & 3) == kSkip) return;  // a filled pass
+  const K* digsrc = static_cast<const K*>(digit_plane(digit, src_of(role)));
   const int64_t t = LOOKBACK ? (int64_t)tile_id : (int64_t)blockIdx.x;
   const int64_t tile_start = t * kTile;
   const int count = (int)(n - tile_start < kTile ? n - tile_start : kTile);
+  if ((role & 3) == kCopy) {  // no pass runs: IN to OUT, at each width
+    for (int p = 0; p < nplanes; ++p) {
+      const int32_t* in = planes.buf[src_of(role)][p];
+      int32_t* out = planes.buf[dst_of(role)][p];
+      if (KB < 4 && (const void*)in == digsrc)
+        copy_tile<K, THREADS, kTile>(reinterpret_cast<const K*>(in) +
+                                         tile_start,
+                                     reinterpret_cast<K*>(out) + tile_start,
+                                     count, tid);
+      else
+        copy_tile<int32_t, THREADS, kTile>(in + tile_start, out + tile_start,
+                                           count, tid);
+    }
+    return;
+  }
 
   // 1. the warp's 32 * ITEMS consecutive keys, a coalesced round at a
   //    time.  A narrow key is kept as its image, kPer to a register (round
@@ -948,9 +1098,12 @@ rank_scatter_kernel(const void* __restrict__ digit_plane, int64_t n,
   // 5. every element's slot in the digit-sorted tile; a narrow key plane
   //    that moves is staged here at its own width, as the caller's bits
   bool key_moved = false;
-  if constexpr (KB < 4)
+  if constexpr (KB < 4) {
+    const int r = role_now();
     for (int p = 0; p < nplanes; ++p)
-      key_moved |= (const void*)planes.in[p] == digit_plane;
+      key_moved |= (const void*)planes.buf[src_of(r)][p] ==
+                   digit_plane(digit, src_of(r));
+  }
   K* skey = reinterpret_cast<K*>(sval);
 #pragma unroll
   for (int r = 0; r < ITEMS; ++r) {
@@ -978,9 +1131,12 @@ rank_scatter_kernel(const void* __restrict__ digit_plane, int64_t n,
   //    narrow key plane, staged already, first)
   if constexpr (KB < 4) {
     if (key_moved) {
+      const int r = role_now();
       for (int p = 0; p < nplanes; ++p) {
-        if ((const void*)planes.in[p] != digit_plane) continue;
-        K* kout = reinterpret_cast<K*>(planes.out[p]);
+        if ((const void*)planes.buf[src_of(r)][p] !=
+            digit_plane(digit, src_of(r)))
+          continue;
+        K* kout = reinterpret_cast<K*>(planes.buf[dst_of(r)][p]);
         for (int i = tid; i < count; i += THREADS)
           kout[gofs[sdigit[i]] + i] = skey[i];
       }
@@ -989,9 +1145,10 @@ rank_scatter_kernel(const void* __restrict__ digit_plane, int64_t n,
   }
   const bool whole = count == kTile;
   for (int p = 0; p < nplanes; ++p) {
-    const int32_t* in = planes.in[p];
-    int32_t* out = planes.out[p];
-    if ((const void*)in == digit_plane) {
+    const int r = role_now();
+    const int32_t* in = planes.buf[src_of(r)][p];
+    int32_t* out = planes.buf[dst_of(r)][p];
+    if ((const void*)in == digit_plane(digit, src_of(r))) {
       if constexpr (KB < 4) {
         continue;
       } else {
@@ -1027,13 +1184,14 @@ rank_scatter_kernel(const void* __restrict__ digit_plane, int64_t n,
 
 // The arguments of one rank_scatter launch.
 struct PassArgs {
-  const void* digsrc;
+  DigitPlanes digit;
   int64_t n;
   int shift;
   int bits;
   KeyKind kk;
   const int32_t* base;
   LookBack lb;
+  Plan plan;
   int64_t nblocks;
   Planes planes;
   int nplanes;
@@ -1051,7 +1209,7 @@ void launch_rank_scatter(const PassArgs& a, cudaStream_t stream) {
                          cudaFuncAttributePreferredSharedMemoryCarveout,
                          cudaSharedmemCarveoutMaxShared);
   kernel<<<(unsigned)a.nblocks, THREADS, kBytes, stream>>>(
-      a.digsrc, a.n, a.shift, a.bits, a.kk, a.base, a.lb, a.nblocks,
+      a.digit, a.n, a.shift, a.bits, a.kk, a.base, a.lb, a.plan, a.nblocks,
       a.planes, a.nplanes, a.dest);
 }
 
@@ -1103,13 +1261,34 @@ long long onesweep_pass_bytes(long long n, int tile, int radix) {
   return (bytes + 15) / 16 * 16;
 }
 
+// tmps may be null: a launch with no plan, or of a sort of one pass, never
+// writes TMP.
 bool fill_planes(Planes& planes, const void* const* ins, void* const* outs,
-                 int nplanes) {
+                 void* const* tmps, int nplanes) {
   if (nplanes < 0 || nplanes > kMaxPlanes) return false;
-  for (int p = 0; p < kMaxPlanes; ++p) {
-    planes.in[p] = p < nplanes ? (const int32_t*)ins[p] : nullptr;
-    planes.out[p] = p < nplanes ? (int32_t*)outs[p] : nullptr;
-  }
+  const void* const* sets[kSets] = {ins, outs, tmps ? tmps : outs};
+  for (int b = 0; b < kSets; ++b)
+    for (int p = 0; p < kMaxPlanes; ++p)
+      planes.buf[b][p] = p < nplanes ? (int32_t*)sets[b][p] : nullptr;
+  return true;
+}
+
+// The digit plane in IN, OUT and TMP (digsrc[3]; OUT and TMP may be null
+// with no plan) and the plan (table null: none; key0: the sort's key
+// planes in IN, one or two).
+bool fill_plan(PassArgs& a, const void* const* digsrc, const void* table,
+               int npasses, int passes0, int pass, const void* const* key0) {
+  for (int b = 0; b < kSets; ++b)
+    a.digit.buf[b] = digsrc[b] ? digsrc[b] : digsrc[kIn];
+  a.plan = {(const int32_t*)table, {nullptr, nullptr}, npasses, passes0,
+            pass};
+  if (table == nullptr) return true;
+  if (npasses < 1 || npasses > kMaxPasses || passes0 < 1 ||
+      passes0 > npasses || pass < 0 || pass >= npasses || key0 == nullptr ||
+      key0[0] == nullptr || (passes0 < npasses && key0[1] == nullptr))
+    return false;
+  a.plan.key0[0] = key0[0];
+  a.plan.key0[1] = passes0 < npasses ? key0[1] : nullptr;
   return true;
 }
 
@@ -1126,8 +1305,8 @@ int num_sms() {
 
 // The digit source holds keys of key_bytes bytes (1, 2 or 4) of kind `kind`
 // (0 unsigned, 1 signed, 2 float; a 4-byte word plane is 0): see KeyKind.
-// A plane of ins equal to digsrc is the key plane, moved at its own width;
-// every other plane is int32.
+// A plane of a set equal to that set's digit plane is the key plane, moved
+// at its own width; every other plane is int32.
 bool pass_key_ok(int key_bytes, int kind, int shift, KeyKind* kk) {
   return key_kind(key_bytes, kind, kk) && shift >= 0 &&
          shift < 8 * key_bytes;
@@ -1189,19 +1368,24 @@ int rst_exclusive_scan(const void* x, long long n, void* out, void* scratch,
   return (int)cudaGetLastError();
 }
 
-// base: (R, nblocks) int32, digit-major.  ins/outs: host arrays of nplanes
-// device pointers (nplanes <= rst_max_planes()).  dest may be null.
-int rst_rank_scatter(const void* digsrc, long long n, int tile, int threads,
-                     int shift, int radix, int key_bytes, int kind,
-                     const void* base, const void* const* ins,
-                     void* const* outs, int nplanes, void* dest,
-                     void* stream) {
+// base: (R, nblocks) int32, digit-major.  ins/outs/tmps: host arrays of
+// nplanes device pointers (nplanes <= rst_max_planes()), the planes in IN,
+// OUT and TMP; tmps may be null.  digsrc: the digit plane in IN, OUT and
+// TMP (OUT and TMP may be null with no plan).  dest may be null.  The
+// plan: table (P = npasses rows of radix), null for none; passes0 and
+// key0 (one or two key planes in IN) as in Plan; pass, this launch's row.
+int rst_rank_scatter(const void* const* digsrc, long long n, int tile,
+                     int threads, int shift, int radix, int key_bytes,
+                     int kind, const void* base, const void* const* ins,
+                     void* const* outs, void* const* tmps, int nplanes,
+                     void* dest, const void* table, int npasses, int passes0,
+                     int pass, const void* const* key0, void* stream) {
   PassArgs a;
   if (!radix_ok(radix) || n <= 0 || n >= (1ll << 31) || tile <= 0 ||
       !pass_key_ok(key_bytes, kind, shift, &a.kk) ||
-      !fill_planes(a.planes, ins, outs, nplanes))
+      !fill_planes(a.planes, ins, outs, tmps, nplanes) ||
+      !fill_plan(a, digsrc, table, npasses, passes0, pass, key0))
     return (int)cudaErrorInvalidValue;
-  a.digsrc = digsrc;
   a.n = n;
   a.shift = shift;
   a.bits = radix_bits(radix);
@@ -1271,22 +1455,24 @@ int rst_zero(void* p, long long bytes, void* stream) {
 // One look-back pass.  counts: (R,) digit totals of the pass (a row of
 // rst_pass_histograms).  scratch: this pass's zeroed
 // rst_onesweep_scratch_bytes.  base_out: (R, nblocks) int32 tile bases, or
-// null.  dest may be null.  key_bytes, kind and the planes as in
+// null.  dest may be null.  key_bytes, kind, the planes and the plan as in
 // rst_rank_scatter.
-int rst_onesweep_pass(const void* digsrc, long long n, int tile, int threads,
-                      int shift, int radix, int key_bytes, int kind,
-                      const void* counts, void* scratch,
+int rst_onesweep_pass(const void* const* digsrc, long long n, int tile,
+                      int threads, int shift, int radix, int key_bytes,
+                      int kind, const void* counts, void* scratch,
                       long long scratch_bytes, const void* const* ins,
-                      void* const* outs, int nplanes, void* dest,
-                      void* base_out, void* stream) {
+                      void* const* outs, void* const* tmps, int nplanes,
+                      void* dest, void* base_out, const void* table,
+                      int npasses, int passes0, int pass,
+                      const void* const* key0, void* stream) {
   PassArgs a;
   if (!radix_ok(radix) || n <= 0 || n >= (1ll << 31) || tile <= 0 ||
       !pass_key_ok(key_bytes, kind, shift, &a.kk) ||
       (uintptr_t)scratch % 16 ||
       scratch_bytes < onesweep_pass_bytes(n, tile, radix) ||
-      !fill_planes(a.planes, ins, outs, nplanes))
+      !fill_planes(a.planes, ins, outs, tmps, nplanes) ||
+      !fill_plan(a, digsrc, table, npasses, passes0, pass, key0))
     return (int)cudaErrorInvalidValue;
-  a.digsrc = digsrc;
   a.n = n;
   a.shift = shift;
   a.bits = radix_bits(radix);

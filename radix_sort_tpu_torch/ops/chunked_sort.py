@@ -113,10 +113,7 @@ def sort_chunked_biased(keys_bits: torch.Tensor, payloads=(), *,
     nk = len(kplanes)
     parted, counts = stream.partition_planes(dest, kplanes + pay_planes, K,
                                              tile, threads)
-    # a partition that one chunk fills hands back its inputs, which may
-    # be the caller's tensors: the chunk sorts below write in place
-    parted = tuple(p.clone() if p is q else p
-                   for p, q in zip(parted, kplanes + pay_planes))
+    # new storage, never the caller's: the chunk sorts below write in it
     keys_out = stream._join_key_word_planes(parted[:nk], keys_bits.dtype)
     pays_out = parted[nk:]
     stream.host_reads += 1  # the chunk sizes

@@ -26,6 +26,7 @@ stay below 2^31 because destinations are int32.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -186,7 +187,9 @@ exclusive_scan.launches = 0
 # modes: ``rank_scatter`` takes the (B, R) base table of
 # ``_stitch_block_base``; ``onesweep_pass`` finds each tile's base by
 # decoupled look-back from the pass's (R,) digit totals, so a pass is one
-# launch.
+# launch.  A sort launches every pass with a ``PassPlan``: each launch
+# decides on the card from the sort's pass table whether its pass runs and
+# which buffer set it reads and writes, so the host reads nothing back.
 
 def _stitch_block_base_plain(counts: torch.Tensor) -> torch.Tensor:
     B, R = counts.shape
@@ -235,15 +238,22 @@ def _key_args(digit_src: torch.Tensor, kind: str):
     return digit_src.element_size(), _KINDS[kind]
 
 
-def _launch_groups(lib, planes, outs):
-    """(ins, outs, count) ctypes arrays for each launch: at most
-    rst_max_planes() planes a launch, and one launch with no plane."""
+def _ptrs(tensors):
+    """A ctypes array of the tensors' device pointers (None for None)."""
+    return (ctypes.c_void_p * len(tensors))(
+        *[None if t is None else t.data_ptr() for t in tensors])
+
+
+def _launch_groups(lib, planes, outs, tmps=None):
+    """(ins, outs, tmps, count) ctypes arrays for each launch (tmps None
+    where ``tmps`` is): at most rst_max_planes() planes a launch, and one
+    launch with no plane."""
     step = lib.rst_max_planes()
     for lo in range(0, max(len(planes), 1), step):
-        grp = range(lo, min(lo + step, len(planes)))
-        yield ((ctypes.c_void_p * step)(*(planes[i].data_ptr() for i in grp)),
-               (ctypes.c_void_p * step)(*(outs[i].data_ptr() for i in grp)),
-               len(grp))
+        hi = lo + step
+        yield (_ptrs(planes[lo:hi]), _ptrs(outs[lo:hi]),
+               None if tmps is None else _ptrs(tmps[lo:hi]),
+               min(step, len(planes) - lo))
 
 
 def rank_scatter(digit_src: torch.Tensor, planes, base: torch.Tensor,
@@ -279,12 +289,12 @@ def rank_scatter(digit_src: torch.Tensor, planes, base: torch.Tensor,
     base_rb = base.T.contiguous()  # digit-major (R, B); free from the stitch
     lib = _build.lib()
     # more planes than one launch takes: further launches re-rank the tile
-    for g, (ins, outp, k) in enumerate(_launch_groups(lib, planes, outs)):
+    for g, (ins, outp, _, k) in enumerate(_launch_groups(lib, planes, outs)):
         _build.check(lib.rst_rank_scatter(
-            digit_src.data_ptr(), n, tile, threads, shift, radix,
-            *_key_args(digit_src, kind), base_rb.data_ptr(), ins, outp, k,
-            dest.data_ptr() if (dest is not None and g == 0) else None,
-            _stream(digit_src)), "rank_scatter")
+            _ptrs((digit_src, None, None)), n, tile, threads, shift, radix,
+            *_key_args(digit_src, kind), base_rb.data_ptr(), ins, outp, None,
+            k, dest.data_ptr() if (dest is not None and g == 0) else None,
+            *_NO_PLAN, _stream(digit_src)), "rank_scatter")
         rank_scatter.launches += 1
     return outs, dest
 
@@ -381,8 +391,8 @@ pass_histograms.narrow_launches = {8: 0, 16: 0}
 def onesweep_scratch(n: int, radix: int, tile: int, passes: int,
                      device) -> torch.Tensor:
     """Look-back scratch for ``passes`` passes over n elements on a card:
-    (passes, bytes) uint8, row i for the i-th pass that runs, all zeroed by
-    one memset on the current stream."""
+    (passes, bytes) uint8, row p for pass p of a sort, all zeroed by one
+    memset on the current stream."""
     lib = _build.lib()
     per = lib.rst_onesweep_scratch_bytes(n, tile, radix)
     scratch = torch.empty((passes, per), dtype=torch.uint8, device=device)
@@ -392,13 +402,151 @@ def onesweep_scratch(n: int, radix: int, tile: int, passes: int,
     return scratch
 
 
-def onesweep_pass_plain(digit_src: torch.Tensor, planes, radix: int,
-                        tile: int, shift: int = 0, with_dest: bool = False,
-                        kind: str = "u"):
+class PassPlan(NamedTuple):
+    """What each launch of a sort's passes derives its plan from, on the
+    card (``csrc/radix.cu``, ``Plan``): whether its pass runs, and which
+    buffer set it reads and writes.  The sets are IN (the planes the sort
+    was given, never written), OUT (the result) and TMP.
+
+    ``table`` is the sort's (P, R) ``pass_histograms``, ``index`` this
+    pass's row, ``keys`` the sort's key planes in IN (one, or a 64-bit
+    key's lo and hi words; element 0 gives each pass's digit), ``passes0``
+    the rows of ``keys[0]`` (the rest are ``keys[1]``'s), and ``tmp`` the
+    TMP set, tensors like the planes (None for a sort of one pass, which
+    never writes it)."""
+    table: torch.Tensor
+    index: int
+    keys: tuple
+    passes0: int
+    tmp: tuple | None = None
+
+
+MAX_PLAN_PASSES = 64  # a 64-bit key at radix 2
+_NO_PLAN = (None, 0, 0, 0, None)  # the C entries' plan arguments: none
+
+
+def plan_runs(table: torch.Tensor, keys, passes0: int, radix: int,
+              kind: str = "u") -> list:
+    """Which passes of a sort run, the plain version of every CTA's
+    prologue: pass q runs unless one digit holds every key, i.e. unless
+    ``table[q][digit_q(key 0)] == n`` (the JAX engine's ``max(totals) ==
+    padded``).  A narrow ``keys[0]`` of ``kind`` gives its image's digits.
+    Reads the table: on a CPU tensor that is no read of the card."""
+    bits = radix.bit_length() - 1
+    P = table.shape[0]
+    digits = [_digits(keys[1][:1], radix, (q - passes0) * bits)
+              if q >= passes0 else
+              _digits(keys[0][:1], radix, q * bits, kind)
+              for q in range(P)]
+    d = torch.cat(digits).to(device=table.device, dtype=torch.int64)
+    rows = torch.arange(P, device=table.device)
+    return (table[rows, d] != keys[0].numel()).tolist()
+
+
+def pass_role(runs, index: int):
+    """(mode, src, dst) of pass ``index`` of a sort whose passes run as
+    ``runs`` says: mode "run", "copy" (no pass runs: the last copies IN to
+    OUT) or "skip"; src and dst 0 (IN), 1 (OUT) or 2 (TMP).  Of the m
+    passes that run, the k-th reads IN (k = 0) or what the one before it
+    wrote, and writes OUT when m - 1 - k is even, so the last writes OUT."""
+    m, k = sum(runs), sum(runs[:index])
+
+    def dst(j):
+        return 2 if (m - 1 - j) % 2 else 1
+
+    if runs[index]:
+        return "run", (0 if k == 0 else dst(k - 1)), dst(k)
+    if m == 0 and index == len(runs) - 1:
+        return "copy", 0, 1
+    return "skip", 0, 0
+
+
+def _buffer_sets(planes, outs, tmp):
+    return (tuple(planes), tuple(outs),
+            tuple(outs) if tmp is None else tuple(tmp))
+
+
+def _digit_sets(digit_src: torch.Tensor, planes, sets):
+    """The digit plane in IN, OUT and TMP: the key plane's counterparts
+    where it is one of ``planes`` (it moves), else ``digit_src`` in all
+    three (a partition's ids)."""
+    for i, p in enumerate(planes):
+        if p.numel() and p.data_ptr() == digit_src.data_ptr():
+            return tuple(s[i] for s in sets)
+    return (digit_src,) * 3
+
+
+def _check_plan(plan: PassPlan, digit_src: torch.Tensor, planes,
+                counts: torch.Tensor, radix: int, kind: str):
+    table, keys = plan.table, tuple(plan.keys)
+    P = table.shape[0] if table.ndim == 2 else 0
+    if (table.dtype != torch.int32 or tuple(table.shape) != (P, radix)
+            or not table.is_contiguous() or table.device != digit_src.device
+            or not 1 <= P <= MAX_PLAN_PASSES):
+        raise ValueError(f"plan.table must be a contiguous (P, {radix}) "
+                         f"int32 tensor on {digit_src.device}, 1 <= P <= "
+                         f"{MAX_PLAN_PASSES}")
+    if not 0 <= plan.index < P or not 1 <= plan.passes0 <= P:
+        raise ValueError(f"plan index {plan.index} / passes0 "
+                         f"{plan.passes0} outside the table's {P} rows")
+    if len(keys) != (1 if plan.passes0 == P else 2):
+        raise ValueError("plan.keys: one key plane, or two where passes0 < P")
+    for i, k in enumerate(keys):  # the pass's own planes are checked
+        if k is digit_src or any(k is p for p in planes):
+            continue
+        if i == 0:
+            _check_key_plane(k, kind, "plan key plane", digit_src.device)
+        else:
+            _check_plane(k, "plan key plane", digit_src.device)
+        if k.numel() != digit_src.numel():
+            raise ValueError("plan key planes must have the digit plane's "
+                             "length")
+    if counts.data_ptr() != table.data_ptr() + 4 * radix * plan.index:
+        raise ValueError("counts must be plan.table[plan.index]")
+    if plan.tmp is not None:
+        _check_like(plan.tmp, planes, "plan.tmp")
+
+
+def _check_like(bufs, planes, what: str):
+    bufs = tuple(bufs)
+    if len(bufs) != len(planes) or any(
+            o.shape != p.shape or o.dtype != p.dtype or o.device != p.device
+            or not o.is_contiguous() for o, p in zip(bufs, planes)):
+        raise ValueError(f"{what} must match planes")
+    return bufs
+
+
+def _pass_plain(digit_src, planes, radix, tile, shift, with_dest, kind):
     base = _stitch_block_base_plain(
         digit_histogram_plain(digit_src, radix, tile, shift, kind))
     return rank_scatter_plain(digit_src, planes, base, radix, tile, shift,
                               with_dest, kind)
+
+
+def onesweep_pass_plain(digit_src: torch.Tensor, planes, radix: int,
+                        tile: int, shift: int = 0, with_dest: bool = False,
+                        kind: str = "u", *, plan: PassPlan | None = None,
+                        outs=None):
+    """The plain version of ``onesweep_pass``; with a ``plan`` it does what
+    the kernel's launch does: reads the set the plan says, writes ``outs``
+    or ``plan.tmp``, copies IN to ``outs`` when no pass runs, or nothing,
+    and returns (outs, None)."""
+    if plan is None:
+        return _pass_plain(digit_src, planes, radix, tile, shift, with_dest,
+                           kind)
+    sets = _buffer_sets(planes, outs, plan.tmp)
+    mode, src, dst = pass_role(
+        plan_runs(plan.table, plan.keys, plan.passes0, radix, kind),
+        plan.index)
+    if mode == "run":
+        res, _ = _pass_plain(_digit_sets(digit_src, planes, sets)[src],
+                             sets[src], radix, tile, shift, False, kind)
+        for o, r in zip(sets[dst], res):
+            o.copy_(r)
+    elif mode == "copy":
+        for o, i in zip(sets[1], sets[0]):
+            o.copy_(i)
+    return sets[1], None
 
 
 def onesweep_pass(digit_src: torch.Tensor, planes, counts: torch.Tensor,
@@ -406,7 +554,7 @@ def onesweep_pass(digit_src: torch.Tensor, planes, counts: torch.Tensor,
                   scratch: torch.Tensor | None = None, outs=None,
                   with_dest: bool = False,
                   threads: int = DEFAULT_CONFIG.threads_per_cta,
-                  kind: str = "u"):
+                  kind: str = "u", plan: PassPlan | None = None):
     """One stable radix pass as a single launch: the planes move as
     ``rank_scatter`` moves them, each tile's offsets found by look-back.
 
@@ -416,7 +564,14 @@ def onesweep_pass(digit_src: torch.Tensor, planes, counts: torch.Tensor,
     ``outs`` are tensors like ``planes`` to write into (None allocates).
     A narrow ``digit_src`` of ``kind`` is the key plane as in
     ``rank_scatter``.  Returns (planes_out, dest), dest as in
-    ``rank_scatter``."""
+    ``rank_scatter``.
+
+    With a ``plan`` (``PassPlan``; ``counts`` its table's row) the launch
+    is one pass of a sort whose every pass the caller launches, with
+    ``planes`` the sort's IN set and ``outs`` its OUT set: the kernel
+    decides on the card whether the pass runs and which set it reads and
+    writes, so the host reads nothing.  Returns (outs, None): OUT holds
+    the sort's result once its last pass has been launched."""
     planes = _check_pass(digit_src, planes, radix, shift, kind,
                          "onesweep_pass")
     dev = digit_src.device
@@ -425,12 +580,16 @@ def onesweep_pass(digit_src: torch.Tensor, planes, counts: torch.Tensor,
         raise ValueError(f"counts must be ({radix},) int32, got "
                          f"{counts.dtype} {tuple(counts.shape)}")
     if outs is not None:
-        outs = tuple(outs)
-        if len(outs) != len(planes) or any(
-                o.shape != p.shape or o.dtype != p.dtype or o.device != dev
-                or not o.is_contiguous() for o, p in zip(outs, planes)):
-            raise ValueError("outs must match planes")
+        outs = _check_like(outs, planes, "outs")
+    if plan is not None:
+        if outs is None or with_dest:
+            raise ValueError("a planned pass writes into outs and gives no "
+                             "dest")
+        _check_plan(plan, digit_src, planes, counts, radix, kind)
     if not _on_cuda(digit_src):
+        if plan is not None:
+            return onesweep_pass_plain(digit_src, planes, radix, tile, shift,
+                                       kind=kind, plan=plan, outs=outs)
         res, dest = onesweep_pass_plain(digit_src, planes, radix, tile,
                                         shift, with_dest, kind)
         if outs is None:
@@ -453,25 +612,31 @@ def onesweep_pass(digit_src: torch.Tensor, planes, counts: torch.Tensor,
                                                                radix)):
         raise ValueError("scratch is not a row of onesweep_scratch for "
                          "this pass")
-    groups = list(_launch_groups(lib, planes, outs))
+    tmp = None if plan is None else plan.tmp
+    digits = _ptrs(_digit_sets(digit_src, planes,
+                               _buffer_sets(planes, outs, tmp)))
+    plan_args = _NO_PLAN if plan is None else (
+        plan.table.data_ptr(), plan.table.shape[0], plan.passes0, plan.index,
+        _ptrs(tuple(plan.keys) + (None,) * (2 - len(plan.keys))))
+    groups = list(_launch_groups(lib, planes, outs, tmp))
     B = -(-n // tile)
     # later plane groups run in base-table mode from the first's tile bases
     base_rb = (torch.empty((radix, B), dtype=torch.int32, device=dev)
                if len(groups) > 1 else None)
     stream = _stream(digit_src)
     key = _key_args(digit_src, kind)
-    ins, outp, k = groups[0]
+    ins, outp, tmpp, k = groups[0]
     _build.check(lib.rst_onesweep_pass(
-        digit_src.data_ptr(), n, tile, threads, shift, radix, *key,
-        counts.data_ptr(), scratch.data_ptr(), scratch.nbytes, ins, outp, k,
+        digits, n, tile, threads, shift, radix, *key, counts.data_ptr(),
+        scratch.data_ptr(), scratch.nbytes, ins, outp, tmpp, k,
         dest.data_ptr() if dest is not None else None,
-        base_rb.data_ptr() if base_rb is not None else None, stream),
-        "onesweep_pass")
+        base_rb.data_ptr() if base_rb is not None else None, *plan_args,
+        stream), "onesweep_pass")
     _count(onesweep_pass, 8 * digit_src.element_size())
-    for ins, outp, k in groups[1:]:
+    for ins, outp, tmpp, k in groups[1:]:
         _build.check(lib.rst_rank_scatter(
-            digit_src.data_ptr(), n, tile, threads, shift, radix, *key,
-            base_rb.data_ptr(), ins, outp, k, None, stream), "rank_scatter")
+            digits, n, tile, threads, shift, radix, *key, base_rb.data_ptr(),
+            ins, outp, tmpp, k, None, *plan_args, stream), "rank_scatter")
         rank_scatter.launches += 1
     return outs, dest
 

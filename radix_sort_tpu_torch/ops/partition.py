@@ -21,9 +21,8 @@ METHODS = ("auto", "stream", "sort", "rank")
 def _bucket_counts(ids: torch.Tensor, num_buckets: int) -> torch.Tensor:
     """Rows per bucket; ids outside [0, num_buckets) are not counted."""
     inside = (ids >= 0) & (ids < num_buckets)
-    idx = torch.where(inside, ids, num_buckets).to(torch.int64)
-    return torch.bincount(idx, minlength=num_buckets + 1)[:num_buckets].to(
-        torch.int32)
+    idx = torch.where(inside, ids, num_buckets)
+    return stream.bucket_counts(idx, num_buckets + 1)[:num_buckets]
 
 
 def stable_partition(bucket_ids: torch.Tensor, arrays, num_buckets: int,

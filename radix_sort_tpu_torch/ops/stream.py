@@ -7,9 +7,13 @@ column is widened to one plane.  A 1- or 2-byte key of the sort entry
 points is the exception: it stays the caller's bits at its own width, and
 the kernels take its digits from its sortable image
 (``sort_narrow_planes``).  A sort is
-one ``pass_histograms`` launch over the key word planes, one host read of
-its (P, R) table, and one ``onesweep_pass`` launch for each pass that one
-digit does not fill, moving every plane by the digit of one of them.
+one ``pass_histograms`` launch over the key word planes and one
+``onesweep_pass`` launch for every pass, moving every plane by the digit
+of one of them.  Each launch decides on the card, from the (P, R) table,
+whether one digit fills its pass (then it is the identity and returns) and
+which buffer set it reads and writes, as the JAX engine decides with
+``lax.cond`` (``pallas_stream.py:572``): the host reads nothing back, and
+the result is always new storage, never the caller's tensors.
 
 What the TPU engine needed and the port does not: the 128-lane row layout,
 padding to whole tiles (the kernels mask the ragged tile), the
@@ -36,51 +40,47 @@ def _next_pow2(v: int) -> int:
     return p
 
 
-# Host reads of pass histograms; a sort or a partition makes one.
+# Host reads of the card by the sort path: chunked_sort's chunk sizes.  A
+# sort, a partition and the operators on them make none.
 host_reads = 0
 
 
-def _read_full_passes(hist: torch.Tensor, n: int) -> list:
-    """Which rows of a (P, R) pass histogram one digit fills: the one read
-    of the card a sort makes."""
-    global host_reads
-    host_reads += 1
-    return (hist == n).any(dim=1).tolist()
+def _empty_like_all(planes) -> tuple:
+    return tuple(torch.empty_like(p) for p in planes)
 
 
 def _sort_planes(planes, passes, radix: int, tile: int,
                  threads: int = _THREADS, kind: str = "u"):
     """Onesweep LSD loop: plane w (w < len(passes)) carries passes[w]
     digits, pass j's at shift j * log2(radix); every plane moves every
-    pass.  One pass_histograms launch gives every pass's digit totals, the
-    host reads them once, and each pass that no single digit fills is one
-    onesweep_pass launch — a filled pass is the identity, the reference's
-    CPU early-exit (CRadixSortCPU.h).  The passes ping-pong between two
-    buffer sets allocated here, and their look-back scratch is zeroed by
-    one memset.  A narrow key plane (planes[0], the only key plane) of
-    ``kind`` gives the digits of its image.  Returns the planes after the
-    last pass."""
+    pass.  One pass_histograms launch gives every pass's digit totals, and
+    every pass is one onesweep_pass launch whose CTAs read the plan from
+    the table on the card: a pass that one digit fills is the identity and
+    returns at once (the JAX engine's ``lax.cond`` on ``max(totals) ==
+    padded``, the reference's CPU early-exit in CRadixSortCPU.h).  The
+    passes that run ping-pong between two buffer sets allocated here, OUT
+    and TMP, so that the last writes OUT; when none runs, the last launch
+    copies the planes into OUT.  Their look-back scratch, a row a pass, is
+    zeroed by one memset.  A narrow key plane (planes[0], the only key
+    plane) of ``kind`` gives the digits of its image.  Returns OUT: the
+    planes sorted, in storage of their own."""
     planes = tuple(planes)
     n = planes[0].numel()
     bits = radix.bit_length() - 1
-    hist = cr.pass_histograms(planes[:len(passes)], passes, radix, kind)
-    full = _read_full_passes(hist, n)
+    keys = planes[:len(passes)]
+    hist = cr.pass_histograms(keys, passes, radix, kind)
     rows = [(w, j * bits) for w, np_ in enumerate(passes) for j in range(np_)]
-    run = [(row, w, shift) for row, (w, shift) in enumerate(rows)
-           if not full[row]]
-    if not run:
-        return planes
     on_card = planes[0].device.type == "cuda"
-    scratch = (cr.onesweep_scratch(n, radix, tile, len(run), planes[0].device)
-               if on_card else [None] * len(run))
-    bufs = [tuple(torch.empty_like(p) for p in planes)
-            for _ in range(min(2, len(run)))]
-    for i, (row, w, shift) in enumerate(run):
-        planes, _ = cr.onesweep_pass(planes[w], planes, hist[row], radix,
-                                     tile, shift, scratch=scratch[i],
-                                     outs=bufs[i % 2], threads=threads,
-                                     kind=kind)
-    return planes
+    scratch = (cr.onesweep_scratch(n, radix, tile, len(rows), planes[0].device)
+               if on_card else [None] * len(rows))
+    outs = _empty_like_all(planes)
+    tmp = _empty_like_all(planes) if len(rows) > 1 else None
+    for p, (w, shift) in enumerate(rows):
+        cr.onesweep_pass(planes[w], planes, hist[p], radix, tile, shift,
+                         scratch=scratch[p], outs=outs, threads=threads,
+                         kind=kind,
+                         plan=cr.PassPlan(hist, p, keys, passes[0], tmp))
+    return outs
 
 
 def _key_word_planes(keys_bits: torch.Tensor):
@@ -108,11 +108,11 @@ def sort_planes(keys_bits: torch.Tensor, payload_planes=(), radix: int = 256,
 
     ``total_bits`` caps the sorted key width when the caller knows every
     key is below 2**total_bits: fewer passes run, not just skipped.
-    Returns (keys_bits_out, payload_planes_out)."""
+    Returns (keys_bits_out, payload_planes_out), new tensors."""
     n = keys_bits.shape[0]
     payload_planes = tuple(payload_planes)
     if n == 0:
-        return keys_bits, payload_planes
+        return keys_bits.clone(), _empty_like_all(payload_planes)
     kplanes = _key_word_planes(keys_bits)
     nk = len(kplanes)
     bits_per = radix.bit_length() - 1
@@ -130,15 +130,15 @@ def sort_narrow_planes(keys: torch.Tensor, kind: str, payload_planes=(),
     """Stable LSD sort of 1- or 2-byte keys given as the caller's own bits
     (``cuda_radix.NARROW_KEY_DTYPES``) of ``kind`` ("u", "i", "f"), plus
     int32 payload planes: one pass_histograms launch over the narrow key
-    plane, one host read, and one onesweep_pass for each pass (one a byte
-    at radix 256) that one digit does not fill.  The kernels take the
-    digits from the keys' sortable image and move their bits, so the sort
-    ends with the caller's key bits in order and nothing to undo.
-    Returns (keys_out, payload_planes_out)."""
+    plane and one onesweep_pass for each pass (one a byte at radix 256),
+    each a no-op where one digit fills it.  The kernels take the digits
+    from the keys' sortable image and move their bits, so the sort ends
+    with the caller's key bits in order and nothing to undo.
+    Returns (keys_out, payload_planes_out), new tensors."""
     n = keys.shape[0]
     payload_planes = tuple(payload_planes)
     if n == 0:
-        return keys, payload_planes
+        return keys.clone(), _empty_like_all(payload_planes)
     bits_per = radix.bit_length() - 1
     passes = (-(-8 * keys.element_size() // bits_per),)
     out = _sort_planes((keys.contiguous(),) + payload_planes, passes, radix,
@@ -154,28 +154,38 @@ def partition_planes(bucket_ids: torch.Tensor, planes_i32, num_buckets: int,
     ``bucket_ids`` must lie in [0, num_buckets) — a contract, not a checked
     precondition: the digit is ``ids & (radix - 1)``, so an id outside the
     range wraps into a low bucket (as in the JAX engine).  Up to 256
-    buckets take one pass with the ids as the digit plane, not moved; more
+    buckets take one pass with the ids as the digit plane, not moved: one
+    launch that reorders, or copies where every id is one bucket's; more
     buckets take LSD passes of 8 bits over the ids, which then move too.
-    Returns (partitioned planes, counts (num_buckets,) int32)."""
+    Nothing is read back to the host.
+    Returns (partitioned planes, new tensors; counts (num_buckets,)
+    int32)."""
     ids = bucket_ids.to(torch.int32).contiguous()
     planes = tuple(planes_i32)
     n = ids.numel()
     if n == 0:
-        return planes, torch.zeros(num_buckets, dtype=torch.int32,
-                                   device=ids.device)
+        return _empty_like_all(planes), torch.zeros(
+            num_buckets, dtype=torch.int32, device=ids.device)
     radix = max(2, _next_pow2(num_buckets))
     if radix <= 256:
         hist = cr.pass_histograms((ids,), (1,), radix)
-        totals = hist[0, :num_buckets]
-        if _read_full_passes(hist, n)[0]:
-            return planes, totals
         outs, _ = cr.onesweep_pass(ids, planes, hist[0], radix, tile, 0,
-                                   threads=threads)
-        return outs, totals
+                                   outs=_empty_like_all(planes),
+                                   threads=threads,
+                                   plan=cr.PassPlan(hist, 0, (ids,), 1))
+        return outs, hist[0, :num_buckets]
     bits = radix.bit_length() - 1
     out = _sort_planes((ids,) + planes, (-(-bits // 8),), 256, tile, threads)
-    counts = torch.bincount(ids.to(torch.int64), minlength=num_buckets)
-    return out[1:], counts[:num_buckets].to(torch.int32)
+    return out[1:], bucket_counts(ids, num_buckets)
+
+
+def bucket_counts(ids: torch.Tensor, num_buckets: int) -> torch.Tensor:
+    """(num_buckets,) int32 rows of each id in [0, num_buckets), by
+    ``scatter_add_`` into zeros: on a card ``torch.bincount`` sizes its
+    output by a max it reads back to the host."""
+    counts = torch.zeros(num_buckets, dtype=torch.int32, device=ids.device)
+    return counts.scatter_add_(0, ids.to(torch.int64),
+                               torch.ones_like(ids, dtype=torch.int32))
 
 
 def payloads_to_planes(payloads):

@@ -183,9 +183,9 @@ def dist_sort_kv(local_keys: torch.Tensor, local_values=None, mesh=None,
     ``capacity_factor`` is accepted for the JAX signature and unused.
     ``overlap_chunks`` G > 1 cuts the key space into D*G intervals and
     exchanges them in G sub-chunks, each sent while the one before it
-    sorts (G = 1 when D = 1).  Host reads: the global row count, one for
-    the exchange's split sizes, one for the rebalance, and the sorts'
-    own (``exchange.host_reads``, ``stream.host_reads``)."""
+    sorts (G = 1 when D = 1).  Host reads (``exchange.host_reads``): the
+    global row count, one for the exchange's split sizes, one for the
+    rebalance; the sorts read nothing."""
     del capacity_factor  # no fixed-capacity slots
     if mesh is None:
         mesh = mesh_lib.make_mesh(device=local_keys.device)

@@ -40,7 +40,7 @@ from ..ops import stream
 from . import mesh as mesh_lib
 
 # Host reads of the layer (split sizes, row counts that size an output),
-# counted as stream.host_reads counts the sorts'.
+# counted as stream.host_reads counts chunked_sort's.
 host_reads = 0
 
 

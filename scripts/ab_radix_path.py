@@ -8,9 +8,16 @@ radix-path phases of ``chip_smoke.py`` with the same method as
 ``chip_smoke.time_ms`` (CUDA events around one call, median of 5 after a
 warm-up): ``sort_kv`` of u32 keys + int32 iota at 2^27 over the five
 distributions, ``sort_kv`` of u64 keys at 2^27, ``sort`` of u32 keys at
-2^25, config 3 (filter -> aggregate over 2^26 rows) and config 4 (a 2^20 x
-2^18 join).  Every sort is validated on the card (sorted, payload is the
+2^25 (the headline's call) and at 2^20 (config 1, with
+``engine="torch_sort"`` beside it), ``sort_kv`` of uint8 keys
+(RandomDistributed, Zeros) and float16 keys at 2^27 (the narrow pass),
+config 3 (filter -> aggregate over 2^26 rows) and config 4 (a 2^20 x 2^18
+join).  Every sort is validated on the card (sorted, payload is the
 permutation that produced the keys) and configs 3 and 4 against numpy.
+Rows named "device" are ``chip_smoke.device_ms`` of the same call (50
+back to back, the host's work out of the window); "idle share" is 1 -
+torch.profiler's device time over the event time of 10 back-to-back
+key-only sorts at 2^25, as ``chip_smoke.py`` ``[profile]`` takes it.
 
 The last line is a JSON object with every turn's times; the lines before
 it a table: each phase's times by tree and the change's mean over the
@@ -35,6 +42,16 @@ def _check(ok: bool, what: str) -> None:
         raise SystemExit(f"validation failed: {what}")
 
 
+def _idle_share(run, sorts: int = 10) -> float:
+    """1 - profiled device time / event time of ``sorts`` calls."""
+    def loop():
+        for _ in range(sorts):
+            run()
+
+    wall = turns.time_ms(loop)
+    return 1 - turns.profiled_ms(loop) / wall
+
+
 def worker() -> dict:
     sys.path.insert(0, os.getcwd())
     import torch
@@ -46,12 +63,21 @@ def worker() -> dict:
     times = {}
     cases = [(ds, 27, True) for ds in rt.datasets.make_datasets(np.uint32, 0)]
     cases += [(rt.datasets.RandomDistributed(np.uint64, seed=0), 27, True),
-              (rt.datasets.RandomDistributed(np.uint32, seed=0), 25, False)]
+              (rt.datasets.RandomDistributed(np.uint32, seed=0), 25, False),
+              (rt.datasets.RandomDistributed(np.uint32, seed=0), 20, False)]
+    cases += [((name, dt), 27, True) for name, dt in (
+        ("RandomDistributed", np.uint8), ("Zeros", np.uint8),
+        ("RandomDistributed", np.float16))]
     for ds, log2n, kv in cases:
         n = 1 << log2n
-        keys = rt.dtypes.tensor_from_numpy(ds.generate(n), dev)
-        what = (f"{'sort_kv' if kv else 'sort'} "
-                f"{np.dtype(ds.dtype).name} {ds.name} 2^{log2n}")
+        if isinstance(ds, tuple):  # made on the card
+            keys = rt.datasets_device.generate(ds[0], ds[1], n, seed=9,
+                                               device=dev)
+            what = (f"sort_kv {np.dtype(ds[1]).name} {ds[0]} 2^{log2n}")
+        else:
+            keys = rt.dtypes.tensor_from_numpy(ds.generate(n), dev)
+            what = (f"{'sort_kv' if kv else 'sort'} "
+                    f"{np.dtype(ds.dtype).name} {ds.name} 2^{log2n}")
         bits = rt.dtypes.to_sortable(keys)
         if kv:
             iota = torch.arange(n, dtype=torch.int32, device=dev)
@@ -67,6 +93,13 @@ def worker() -> dict:
         so = rt.dtypes.signed_order(so)
         _check(bool((so[1:] >= so[:-1]).all()), f"{what}: not sorted")
         times[what] = turns.time_ms(run)
+        if log2n == 20 or keys.element_size() < 4:
+            times[f"{what} device"] = turns.device_ms(run)
+        if log2n == 20:  # config 1 beside torch.sort
+            times[f"{what} engine=torch_sort"] = turns.time_ms(
+                lambda: rt.sort(keys, engine="torch_sort"))
+        if log2n == 25:
+            times["idle share sort u32 2^25 x10"] = _idle_share(run)
         del keys, ko, bits, so
 
     n = 1 << 26

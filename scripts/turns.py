@@ -40,6 +40,11 @@ time_ms = _smoke.time_ms  # one call's event time, median of 5
 device_ms = _smoke.device_ms  # a call's share of 50 back-to-back calls
 
 
+def profiled_ms(fn) -> float:
+    """Device time of one ``fn()`` by torch.profiler's kernel rows."""
+    return _smoke._ms(_smoke._profile(fn, 1), 1)
+
+
 def make_tree(name: str, source: str, subs, edit=None,
               scripts=()) -> Path:
     """A copy of this checkout's package under ``build/variants/<name>/``

@@ -5,9 +5,10 @@ the CPU) and the JAX Pallas kernels run in interpret mode, as
 tests/test_pallas_kernels.py runs them: the histogram of every pass is held
 against the JAX ``digit_histogram`` summed over tiles, the look-back pass's
 destinations against the JAX ``rank_pass`` with a JAX-stitched base, and the
-sort's control flow (one host read a sort, filled passes skipped) against
-the JAX sort.  The tests marked ``cuda`` hold both kernels, in both modes of
-the pass kernel, against their plain versions on the card."""
+sort's control flow (no host read, one launch a pass, the filled passes
+skipped by the plan each launch derives) against the JAX sort.  The tests
+marked ``cuda`` hold both kernels, in both modes of the pass kernel, and
+the plan against their plain versions on the card."""
 
 import functools
 import inspect
@@ -140,11 +141,42 @@ def _expected_passes(bits_np: np.ndarray, key_bits: int) -> int:
 
 class _Spy:
     def __init__(self, fn):
-        self.fn, self.calls = fn, 0
+        self.fn, self.calls, self.plans = fn, 0, []
 
     def __call__(self, *a, **k):
         self.calls += 1
+        self.plans.append(k.get("plan"))
         return self.fn(*a, **k)
+
+
+def _planned_runs(spy: _Spy, radix: int = 256, kind: str = "u") -> list:
+    """The passes the plain plan runs, from the plan of the spied sort's
+    launches (one a pass, each with the sort's table)."""
+    plan = spy.plans[0]
+    assert len(spy.plans) == plan.table.shape[0]
+    assert [p.index for p in spy.plans] == list(range(len(spy.plans)))
+    return cr.plan_runs(plan.table, plan.keys, plan.passes0, radix, kind)
+
+
+def _plain_plan(tk: torch.Tensor) -> list:
+    """The passes the plain plan runs for a radix-256 sort of the CPU keys
+    ``tk``: its key planes' pass table, read by ``plan_runs``."""
+    d = tdt.key_dtype(tk.dtype)
+    if d.itemsize < 4:
+        planes, kind, passes = (tdt.as_container(tk),), d.kind, (d.itemsize,)
+    else:
+        planes = stream._key_word_planes(tdt.to_sortable(tk))
+        kind, passes = "u", (4,) * len(planes)
+    table = cr.pass_histograms(planes, passes, 256, kind)
+    return cr.plan_runs(table, planes, passes[0], 256, kind)
+
+
+def _own_storage(outs, ins) -> None:
+    """No output tensor shares storage with an input."""
+    held = {t.untyped_storage().data_ptr() for t in ins if t.numel()}
+    for t in outs:
+        if t.numel():
+            assert t.untyped_storage().data_ptr() not in held
 
 
 CASES = {
@@ -156,10 +188,11 @@ CASES = {
 
 
 @pytest.mark.parametrize("case", list(CASES))
-def test_sort_reads_host_once_and_skips_filled_passes(case, monkeypatch):
-    """sort_kv on the CPU: one pass_histograms, one host read, one
-    onesweep_pass for each pass that one digit does not fill; keys and
-    payloads equal the JAX sort's."""
+def test_sort_reads_no_host_and_skips_filled_passes(case, monkeypatch):
+    """sort_kv on the CPU: one pass_histograms, no host read, one
+    onesweep_pass launch for every pass, of which the plan runs those that
+    one digit does not fill; the result is new storage; keys and payloads
+    equal the JAX sort's."""
     dtype, dist, npay = CASES[case]
     n = 3001
     rng = np.random.default_rng(7)
@@ -175,10 +208,16 @@ def test_sort_reads_host_once_and_skips_filled_passes(case, monkeypatch):
     monkeypatch.setattr(cr, "onesweep_pass", spy)
     reads = stream.host_reads
     tk = tdt.tensor_from_numpy(keys, "cpu")
-    ok, ov = rtt.sort_kv(tk, tuple(torch.from_numpy(v) for v in vals))
-    assert stream.host_reads == reads + 1
+    tv = tuple(torch.from_numpy(v) for v in vals)
+    ok, ov = rtt.sort_kv(tk, tv)
+    assert stream.host_reads == reads
     bits = tdt.to_sortable(tk).numpy()
-    assert spy.calls == _expected_passes(bits, tdt.key_bits(tk.dtype))
+    key_bits = tdt.key_bits(tk.dtype)
+    assert spy.calls == key_bits // 8  # one launch a pass
+    kind = tdt.key_dtype(tk.dtype).kind if key_bits < 32 else "u"
+    assert sum(_planned_runs(spy, kind=kind)) == _expected_passes(bits,
+                                                                  key_bits)
+    _own_storage((ok,) + tuple(ov), (tk,) + tv)
     jk, jv = rst.sort_kv(jnp.asarray(keys),
                          tuple(jnp.asarray(v) for v in vals))
     np.testing.assert_array_equal(tdt.tensor_to_numpy(ok), np.asarray(jk))
@@ -187,17 +226,25 @@ def test_sort_reads_host_once_and_skips_filled_passes(case, monkeypatch):
 
 
 @pytest.mark.parametrize("num_buckets", [2, 100, 256, 1000])
-def test_partition_reads_host_once(num_buckets, monkeypatch):
-    """partition_planes: one host read; its totals come from the pass
-    histogram (up to 256 buckets) and the planes are stably partitioned."""
+def test_partition_reads_no_host(num_buckets, monkeypatch):
+    """partition_planes: no host read, one launch a pass (one up to 256
+    buckets, two 8-bit passes for 1000); its totals come from the pass
+    histogram (up to 256 buckets) and the planes are stably partitioned.
+    Ids all of one bucket fill every pass: the plan runs none and the last
+    launch copies the payload into new storage."""
     rng = np.random.default_rng(num_buckets)
     n = 5000
     ids = rng.integers(0, num_buckets, n).astype(np.int32)
     pay = torch.arange(n, dtype=torch.int32)
+    launches = 1 if num_buckets <= 256 else 2
+    spy = _Spy(cr.onesweep_pass)
+    monkeypatch.setattr(cr, "onesweep_pass", spy)
     reads = stream.host_reads
     outs, counts = stream.partition_planes(torch.from_numpy(ids), (pay,),
                                            num_buckets)
-    assert stream.host_reads == reads + 1
+    assert stream.host_reads == reads
+    assert spy.calls == launches
+    assert all(_planned_runs(spy))
     np.testing.assert_array_equal(counts.numpy(),
                                   np.bincount(ids, minlength=num_buckets))
     np.testing.assert_array_equal(outs[0].numpy(),
@@ -206,8 +253,119 @@ def test_partition_reads_host_once(num_buckets, monkeypatch):
     spy = _Spy(cr.onesweep_pass)
     monkeypatch.setattr(cr, "onesweep_pass", spy)
     outs, counts = stream.partition_planes(one, (pay,), num_buckets)
-    assert outs[0] is pay and int(counts[-1]) == n
-    assert spy.calls == 0
+    assert stream.host_reads == reads
+    assert spy.calls == launches and not any(_planned_runs(spy))
+    assert int(counts[-1]) == n
+    torch.testing.assert_close(outs[0], pay, rtol=0, atol=0)
+    _own_storage(outs, (pay, one))
+
+
+# Keys of a u32 (or u64) sort by the passes its plan runs: no pass, a filled
+# first pass before running ones, a filled last pass after them, and a
+# 64-bit key whose high word fills its four passes.
+PLAN_CASES = {
+    "none_runs": (np.uint32, [False] * 4),
+    "filled_first": (np.uint32, [False, True, True, True]),
+    "filled_last": (np.uint32, [True, True, True, False]),
+    "u64_high_word_filled": (np.uint64, [True] * 4 + [False] * 4),
+}
+
+
+def _plan_keys(case: str, n: int) -> np.ndarray:
+    rng = np.random.default_rng(len(case))
+    if case == "none_runs":
+        return np.full(n, 0x5A5A5A5A, np.uint32)
+    if case == "filled_first":
+        return (rng.integers(0, 1 << 24, n).astype(np.uint32) << 8) | 0x5A
+    if case == "filled_last":
+        return rng.integers(0, 1 << 24, n).astype(np.uint32)
+    return rng.integers(0, 1 << 32, n, dtype=np.uint64)
+
+
+def _plan_launches(keys: np.ndarray, device):
+    """A sort's planes (key words + an iota) in IN, zeroed OUT and TMP, its
+    table and one PassPlan a pass, as ops/stream.py builds them."""
+    n = keys.size
+    words = keys.view(np.int32).reshape(n, -1)
+    keys_in = tuple(torch.from_numpy(words[:, w].copy()).to(device)
+                    for w in range(words.shape[1]))
+    planes = keys_in + (torch.arange(n, dtype=torch.int32, device=device),)
+    outs = tuple(torch.zeros_like(p) for p in planes)
+    tmp = tuple(torch.zeros_like(p) for p in planes)
+    passes = (4,) * len(keys_in)
+    table = cr.pass_histograms(keys_in, passes, 256)
+    rows = [(w, 8 * j) for w in range(len(keys_in)) for j in range(4)]
+    return planes, outs, tmp, table, [
+        (w, shift, cr.PassPlan(table, p, keys_in, 4, tmp))
+        for p, (w, shift) in enumerate(rows)]
+
+
+@pytest.mark.parametrize("case", list(PLAN_CASES))
+def test_plain_plan_runs_reads_and_writes_its_sets(case):
+    """The plain plan on the CPU: which passes run, each launch's role, and
+    the set each launch writes: the k-th of m running passes reads what the
+    one before wrote and writes OUT when m - 1 - k is even, a filled pass
+    writes nothing, and with m == 0 the last launch copies IN to OUT.  IN
+    is never written; OUT ends as the stable sort, in its own storage."""
+    dtype, want_runs = PLAN_CASES[case]
+    n = 3 * TILE + 5
+    keys = _plan_keys(case, n)
+    planes, outs, tmp, table, launches = _plan_launches(keys, "cpu")
+    saved = tuple(p.clone() for p in planes)
+    runs = cr.plan_runs(table, launches[0][2].keys, 4, 256)
+    assert runs == want_runs
+    m = sum(runs)
+    sets = (planes, outs, tmp)
+    order = np.arange(n)  # the permutation after the passes so far
+    u = keys.astype(np.uint64)
+    for p, (w, shift, plan) in enumerate(launches):
+        before = [tuple(b.clone() for b in st) for st in sets]
+        got, dest = cr.onesweep_pass(planes[w], planes, table[p], 256, TILE,
+                                     shift, outs=outs, plan=plan)
+        assert got is outs and dest is None
+        mode, src, dst = cr.pass_role(runs, p)
+        k = sum(runs[:p])
+        if runs[p]:
+            assert mode == "run" and dst == (1 if (m - 1 - k) % 2 == 0 else 2)
+            assert src == (0 if k == 0 else (1 if (m - k) % 2 == 0 else 2))
+            digit = (u[order] >> np.uint64(32 * w + shift)) & np.uint64(255)
+            order = order[np.argsort(digit, kind="stable")]
+            np.testing.assert_array_equal(sets[dst][-1].numpy(), order)
+        elif m == 0 and p == len(runs) - 1:
+            assert (mode, src, dst) == ("copy", 0, 1)
+            dst = 1
+        else:
+            assert mode == "skip"
+            dst = None
+        for i, st in enumerate(sets):  # only the set written changed
+            if i != dst:
+                for b, a in zip(before[i], st):
+                    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    for a, b in zip(planes, saved):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    np.testing.assert_array_equal(outs[-1].numpy(),
+                                  np.argsort(keys, kind="stable"))
+    _own_storage(outs, planes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(PLAN_CASES))
+def test_cuda_plan_matches_plain(cuda_device, case):
+    """Each launch of a sort's passes on the card leaves IN, OUT and TMP
+    as the plain plan leaves them, bit for bit, at a ragged n (a copy, a
+    filled pass and running ones)."""
+    n = (1 << 20) + 77
+    keys = _plan_keys(case, n)
+    card = _plan_launches(keys, cuda_device)
+    plain = _plan_launches(keys, cuda_device)
+    for (w, shift, plan), (_, _, pplan) in zip(card[4], plain[4]):
+        cr.onesweep_pass(card[0][w], card[0], card[3][plan.index], 256,
+                         8192, shift, outs=card[1], plan=plan)
+        cr.onesweep_pass_plain(plain[0][w], plain[0], 256, 8192, shift,
+                               plan=pplan, outs=plain[1])
+        for a_set, b_set in zip(card[:3], plain[:3]):
+            for a, b in zip(a_set, b_set):
+                torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize(
@@ -342,24 +500,28 @@ def test_cuda_pass_histograms_matches_plain(cuda_device, n, radix):
 @pytest.mark.parametrize("dtype", [np.uint64, np.int64, np.uint32, np.uint16])
 def test_cuda_sort_matches_cpu_sort(cuda_device, dtype):
     """The whole onesweep sort on the card equals the same sort on the CPU
-    (the plain versions), 64-bit keys included; one pass_histograms launch
-    and one host read."""
+    (the plain versions), 64-bit keys included; one pass_histograms launch,
+    one onesweep_pass launch a pass, and no host read."""
     n = (1 << 22) + 5
     ds = rtt.datasets.RandomDistributed(dtype, seed=4)
     keys = ds.generate(n)
     iota = np.arange(n, dtype=np.int32)
     cr.reset_launch_counts()
     reads = stream.host_reads
-    gk, gv = rtt.sort_kv(tdt.tensor_from_numpy(keys, cuda_device),
-                         torch.from_numpy(iota).to(cuda_device))
+    gk_in = tdt.tensor_from_numpy(keys, cuda_device)
+    gv_in = torch.from_numpy(iota).to(cuda_device)
+    gk, gv = rtt.sort_kv(gk_in, gv_in)
     torch.cuda.synchronize()
-    assert stream.host_reads == reads + 1
+    assert stream.host_reads == reads
     counts = cr.launch_counts()
     assert counts["pass_histograms"] == 1
     assert counts["digit_histogram"] == 0 and counts["exclusive_scan"] == 0
     ck_in = tdt.tensor_from_numpy(keys, "cpu")
-    assert counts["onesweep_pass"] == _expected_passes(
-        tdt.to_sortable(ck_in).numpy(), tdt.key_bits(ck_in.dtype))
+    key_bits = tdt.key_bits(ck_in.dtype)
+    assert counts["onesweep_pass"] == key_bits // 8  # one launch a pass
+    assert sum(_plain_plan(ck_in)) == _expected_passes(
+        tdt.to_sortable(ck_in).numpy(), key_bits)
+    _own_storage((gk, gv), (gk_in, gv_in))
     ck, cv = rtt.sort_kv(ck_in, torch.from_numpy(iota))
     np.testing.assert_array_equal(tdt.tensor_to_numpy(gk),
                                   tdt.tensor_to_numpy(ck))
@@ -509,8 +671,10 @@ def test_narrow_plain_pass_matches_widened(dtype, dist, radix):
 @pytest.mark.parametrize("dtype", list(NARROW))
 def test_narrow_sort_skips_filled_passes_and_keeps_the_callers_bits(
         dtype, monkeypatch):
-    """A pass that one digit fills runs no onesweep_pass; a sort whose every
-    pass is filled returns the caller's key tensor untouched."""
+    """A pass that one digit fills is launched and the plan skips it; a
+    sort whose every pass is filled gives the caller's key bits and payload
+    back in storage of their own (the last launch copies them), with no
+    host read."""
     d = np.dtype(NARROW[dtype])
     n = 2 * TILE + 5
     keys = tdt.tensor_from_numpy(_narrow_keys(d, n, 5, "one_high_digit"),
@@ -519,12 +683,25 @@ def test_narrow_sort_skips_filled_passes_and_keeps_the_callers_bits(
     iota = torch.arange(n, dtype=torch.int32)
     spy = _Spy(cr.onesweep_pass)
     monkeypatch.setattr(cr, "onesweep_pass", spy)
+    reads = stream.host_reads
     ko, (vo,) = stream.sort_narrow_planes(plane, d.kind, (iota,))
-    assert spy.calls == d.itemsize - 1  # the high byte fills its pass
+    assert spy.calls == d.itemsize  # one launch a pass
+    # the high byte fills its pass
+    assert _planned_runs(spy, kind=d.kind) == [True] * (d.itemsize - 1) + [
+        False]
     same = plane[3].repeat(n)
+    spy = _Spy(cr.onesweep_pass)
+    monkeypatch.setattr(cr, "onesweep_pass", spy)
     ko2, (vo2,) = stream.sort_narrow_planes(same, d.kind, (iota,))
-    assert spy.calls == d.itemsize - 1
-    assert ko2 is same and vo2 is iota
+    assert spy.calls == d.itemsize
+    assert not any(_planned_runs(spy, kind=d.kind))
+    assert stream.host_reads == reads
+    _bits_equal(ko2, same)
+    torch.testing.assert_close(vo2, iota, rtol=0, atol=0)
+    _own_storage((ko2, vo2), (same, iota))
+    ko2[0] += 1
+    vo2[0] += 1
+    assert int(same[0]) == int(plane[3]) and int(iota[0]) == 0
     img = tdt.np_to_sortable_unsigned(tdt.tensor_to_numpy(keys))
     perm = np.argsort(img, kind="stable")
     np.testing.assert_array_equal(vo.numpy(), perm)
@@ -755,17 +932,23 @@ def test_cuda_narrow_pass_64bit_status_words(cuda_device):
 def test_cuda_narrow_sort_kv_matches_cpu_sort(cuda_device, dtype):
     """sort_kv of narrow keys on the card equals the same sort on the CPU
     (the plain versions): one pass_histograms and one onesweep_pass a byte
-    of key, all with the narrow key plane, and one host read."""
+    of key, all with the narrow key plane, the passes the plain plan runs,
+    and no host read."""
     d = np.dtype(NARROW[dtype])
     n = (1 << 22) + 5
     keys = _narrow_keys(d, n, 9)
     iota = np.arange(n, dtype=np.int32)
     cr.reset_launch_counts()
     reads = stream.host_reads
-    gk, gv = rtt.sort_kv(tdt.tensor_from_numpy(keys, cuda_device),
-                         torch.from_numpy(iota).to(cuda_device))
+    gk_in = tdt.tensor_from_numpy(keys, cuda_device)
+    gv_in = torch.from_numpy(iota).to(cuda_device)
+    gk, gv = rtt.sort_kv(gk_in, gv_in)
     torch.cuda.synchronize()
-    assert stream.host_reads == reads + 1
+    assert stream.host_reads == reads
+    ck_in = tdt.tensor_from_numpy(keys, "cpu")
+    assert sum(_plain_plan(ck_in)) == _expected_passes(
+        tdt.to_sortable(ck_in).numpy(), 8 * d.itemsize)
+    _own_storage((gk, gv), (gk_in, gv_in))
     bits = 8 * d.itemsize
     assert cr.launch_counts()["pass_histograms"] == 1
     narrow = cr.narrow_launch_counts()
