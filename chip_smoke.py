@@ -13,8 +13,14 @@ and a view off a 4-byte boundary, a ragged n, 17 planes and the
 partition's pass; the sort's plan at u32 KV 2^27, launch by launch against
 the plain plan: a filled pass, a filled pass before a running one, and a
 sort that runs no pass, whose last launch copies its input into new
-storage; ``pass_histograms`` at 2^27 for 8-, 16-, 32- and 64-bit
-keys, the 8- and 16-bit ones on the caller's keys;
+storage; ``[enqueue]``: ``sort_passes``, a whole sort or partition in
+one call into the kernel library (``rst_sort_planes``), against the
+per-pass launches and the plain version at u32 key-only 2^20, u32 KV 2^27
+(RandomDistributed, Zeros), u64 KV 2^24, u8 and f16 KV 2^27, a 17-plane
+KV and partitions at 256 and 1000 buckets, then config 1's sort beside
+``torch.sort`` and config 4 beside ``engine="torch_sort"`` (one call's
+ms, the host's enqueue µs, device ms); ``pass_histograms`` at 2^27 for
+8-, 16-, 32- and 64-bit keys, the 8- and 16-bit ones on the caller's keys;
 ``rank_scatter`` in base-table mode at 2^22; ``tile_sort`` and every
 ``merge_level`` of a 2^25 merge sort on RandomDistributed, Zeros, Range and
 disjoint runs, levels 0 and 10 against the plain versions with their
@@ -231,6 +237,21 @@ def device_ms(fn, calls: int = 50, reps: int = 3) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / calls)
     return float(np.median(times))
+
+
+def enqueue_us(fn, calls: int = 20) -> float:
+    """The host's time to enqueue one call of ``fn``, in microseconds:
+    ``time.perf_counter`` around the call with no sync (the card idle
+    before each), median of ``calls`` after a warm-up."""
+    fn()
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return float(np.median(times)) * 1e6
 
 
 def timings(fn, plain) -> dict:
@@ -464,6 +485,7 @@ def phase_kernels(dev, rt, cr, cm):
     del keys, planes, base, outs, dest, pouts, pdest, iota
 
     phase_onesweep(dev, rt, cr, note, res)
+    phase_enqueue(dev, rt, cr)
 
     phase_merge_kernels(dev, rt, cm, note, res)
     after = launch_counts()
@@ -751,6 +773,127 @@ def phase_plan(dev, cr, tile: int, iota, note):
           f"launch {skip:.5f} ms (every CTA returns after the plan); the "
           f"last launch's copy of IN to OUT {copy:.5f} ms, bound "
           f"{bound_ms(16 * n):.5f} ms", flush=True)
+
+
+def sort_args(rt, keys, npay: int, dev):
+    """sort_passes' (key planes, passes, payload planes, kind) for a radix
+    256 sort of ``keys`` with ``npay`` int32 payload planes, as the sort
+    entry points build them."""
+    from radix_sort_tpu_torch.ops import stream
+
+    n = keys.numel()
+    d = rt.dtypes.key_dtype(keys.dtype)
+    iota = torch.arange(n, dtype=torch.int32, device=dev)
+    pays = tuple(iota * (2 * i + 1) for i in range(npay))
+    if d.itemsize < 4:
+        return (rt.dtypes.as_container(keys),), (d.itemsize,), pays, d.kind
+    kp = stream._key_word_planes(rt.dtypes.to_sortable(keys))
+    return kp, (4,) * len(kp), pays, "u"
+
+
+def phase_enqueue(dev, rt, cr):
+    """[enqueue] ``sort_passes``, a whole sort or partition in one call into
+    the kernel library (``rst_sort_planes``), bit for bit against the
+    per-pass launches (``sort_passes_plain`` on the same card tensors, with
+    the same launch counts) and against the plain torch version
+    (``torch_only``): u32 key-only 2^20, u32 KV 2^27 on RandomDistributed
+    and Zeros, u64 KV 2^24, u8 and f16 KV 2^27, a 17-plane KV (u32 keys and
+    16 payloads at 2^24: a base-table launch a pass) and partitions of 2^26
+    rows at 256 and 1000 buckets.  Then config 1's sort beside torch.sort
+    and config 4 beside engine="torch_sort": one call's ms, the host's
+    enqueue µs and, for config 1, the device ms a call back to back."""
+    gen = rt.datasets_device.generate
+    tile = rt.DEFAULT_CONFIG.tile_elems
+
+    def counts():
+        return {**cr.launch_counts(), **cr.narrow_launch_counts()}
+
+    cases = [("u32 key-only 2^20 RandomDistributed", np.uint32,
+              "RandomDistributed", 20, 0)]
+    cases += [(f"u32 KV 2^27 {d}", np.uint32, d, 27, 1)
+              for d in ("RandomDistributed", "Zeros")]
+    cases += [("u64 KV 2^24 RandomDistributed", np.uint64,
+               "RandomDistributed", 24, 1),
+              ("u8 KV 2^27 RandomDistributed", np.uint8,
+               "RandomDistributed", 27, 1),
+              ("f16 KV 2^27 RandomDistributed", np.float16,
+               "RandomDistributed", 27, 1),
+              ("17-plane KV 2^24 (u32 keys, 16 payloads)", np.uint32,
+               "RandomDistributed", 24, 16)]
+    for what, dtype, dist, log2n, npay in cases:
+        keys = gen(dist, dtype, 1 << log2n, seed=11, device=dev)
+        kp, passes, pays, kind = sort_args(rt, keys, npay, dev)
+        enqueue_check(cr, what, counts, (kp, passes, pays, 256, tile),
+                      {"kind": kind})
+        del keys, kp, pays
+    gen_ids = torch.Generator(device=dev)
+    gen_ids.manual_seed(12)
+    n = 1 << 26
+    iota = torch.arange(n, dtype=torch.int32, device=dev)
+    for buckets in (256, 1000):
+        ids = torch.randint(0, buckets, (n,), dtype=torch.int32, device=dev,
+                            generator=gen_ids)
+        planes = (iota, iota * 3)
+        if buckets <= 256:
+            args, kw = ((), (1,), planes, 256, tile), {"digit": ids}
+        else:  # two moving 8-bit passes over the ids, as partition_planes
+            args, kw = ((ids,), (2,), planes, 256, tile), {}
+        enqueue_check(cr, f"partition 2^26 rows, {buckets} buckets", counts,
+                      args, kw)
+        del ids, planes
+    del iota
+
+    keys = rt.dtypes.tensor_from_numpy(
+        rt.datasets.RandomDistributed(np.uint32, seed=0).generate(1 << 20),
+        dev)
+    row = {}
+    for name, fn in (("radix", lambda: rt.sort(keys)),
+                     ("torch.sort", lambda: rt.sort(keys,
+                                                    engine="torch_sort"))):
+        row[name] = (time_ms(fn), enqueue_us(fn), device_ms(fn))
+    print("[enqueue] config 1, sort u32 2^20: " + "; ".join(
+        f"{name} one call {one:.4f} ms, host enqueue {enq:.1f} us, device "
+        f"{dms:.4f} ms a call back to back"
+        for name, (one, enq, dms) in row.items()), flush=True)
+    tbc = script("torch_baseline_configs")
+    (_, r), = tbc.config4(dev, 20)
+    require(r["valid"], "[enqueue] config 4: differs from numpy")
+    pcols, bcols = tbc.config4_inputs(20)
+    probe = rt.Table.from_numpy(pcols, device=dev)
+    build = rt.Table.from_numpy(bcols, device=dev)
+    enq = {name: enqueue_us(lambda: tbc.config4_query(probe, build, cfg))
+           for name, cfg in (("radix", rt.DEFAULT_CONFIG),
+                             ("torch_sort",
+                              rt.SortConfig(engine="torch_sort")))}
+    print(f"[enqueue] config 4, join 2^20 x 2^18: radix one call "
+          f"{r['ms']:.4f} ms, host enqueue {enq['radix']:.1f} us; "
+          f"engine=torch_sort one call {r['torch_sort_ms']:.4f} ms, host "
+          f"enqueue {enq['torch_sort']:.1f} us", flush=True)
+
+
+def enqueue_check(cr, what: str, counts, args, kw):
+    """sort_passes(*args, **kw) against sort_passes_plain's per-pass
+    launches and its torch_only version: OUT and the pass table bit for
+    bit, the same launch counts."""
+    c0 = counts()
+    outs, table = cr.sort_passes(*args, **kw)
+    c1 = counts()
+    per, per_table = cr.sort_passes_plain(*args, **kw)
+    c2 = counts()
+    plain, plain_table = cr.sort_passes_plain(*args, **kw, torch_only=True)
+    fused = {k: c1[k] - c0[k] for k in c0}
+    require(fused == {k: c2[k] - c1[k] for k in c0},
+            f"[enqueue] {what}: launches {fused} differ from the per-pass "
+            f"path's")
+    err = max(max_abs_err(bits_of(a), bits_of(b))
+              for want in (per, plain) for a, b in zip(outs, want))
+    err = max(err, max_abs_err(table, per_table),
+              max_abs_err(table, plain_table))
+    require(err == 0, f"[enqueue] {what}: max_abs_err {err}")
+    print(f"[enqueue] {what}: sort_passes bit-exact against the per-pass "
+          f"launches and the plain version (max_abs_err 0); launches "
+          f"{ {k: v for k, v in fused.items() if v} }", flush=True)
+    del outs, per, plain
 
 
 def check_sorted_kv(rt, keys_in, keys_out, perm, host_keys, what,

@@ -34,6 +34,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _PP = ctypes.POINTER(_P)  # a host array of device pointers
+_PI = ctypes.POINTER(_I)  # a host array of ints
 _SIGNATURES = {
     "rst_max_planes": ([], _I),
     "rst_scan_scratch_bytes": ([_LL], _LL),
@@ -47,6 +48,9 @@ _SIGNATURES = {
     "rst_onesweep_pass": ([_PP, _LL, _I, _I, _I, _I, _I, _I, _P, _P, _LL,
                            _PP, _PP, _PP, _I, _P, _P, _P, _I, _I, _I, _PP,
                            _P], _I),
+    "rst_sort_workspace_bytes": ([_LL, _I, _I, _I, _I], _LL),
+    "rst_sort_planes": ([_LL, _I, _I, _I, _I, _I, _PP, _I, _I, _PP, _PP,
+                         _PP, _I, _I, _P, _LL, _P, _PI], _I),
     "rst_merge_tile": ([], _I),
     "rst_tile_sort": ([_P, _LL, _P, _P], _I),
     "rst_merge_level": ([_P, _LL, _I, _P, _P, _P, _P, _P], _I),
@@ -108,13 +112,21 @@ def build() -> Path:
 
 @functools.cache
 def lib() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
+    """The loaded kernel library, built on first call.  Each entry point is
+    looked up and bound here, once: ``lib().rst_x`` is then an attribute
+    of the handle."""
     handle = ctypes.CDLL(str(build()))
     for name, (argtypes, restype) in _SIGNATURES.items():
         fn = getattr(handle, name)
         fn.argtypes = argtypes
         fn.restype = restype
     return handle
+
+
+@functools.cache
+def max_planes() -> int:
+    """``rst_max_planes()``: the planes one pass-kernel launch moves."""
+    return lib().rst_max_planes()
 
 
 def check(status: int, what: str) -> None:

@@ -23,6 +23,12 @@
 //   rank_scatter     in base-table mode: the scanned counts give each
 //                    tile's offsets
 //
+// A sort or partition on the card is one call, rst_sort_planes: it enqueues
+// the memset of its workspace, the pass_histograms launch and every pass's
+// launches.  The entries of each kernel (rst_pass_histograms,
+// rst_onesweep_pass, rst_rank_scatter, ...) stay for the per-kernel checks
+// and the three-launch pass.
+//
 // Every C entry point takes device pointers and the CUDA stream as opaque
 // pointers, launches on that stream, never synchronises, allocates nothing,
 // and returns cudaGetLastError() so the Python wrapper can raise.
@@ -39,6 +45,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -1198,19 +1206,45 @@ struct PassArgs {
   int32_t* dest;
 };
 
+// Whether once-a-device work (a kernel's attributes, a device property:
+// both belong to a device) is still to do on the current device `dev`: bit
+// dev of `done` is clear.  The caller sets the bit when the work is done,
+// so two threads may both do it, which is harmless.  Devices past 63 do it
+// every time.
+bool todo_on_device(const std::atomic<unsigned long long>& done, int* dev) {
+  cudaGetDevice(dev);
+  return *dev < 0 || *dev >= 64 || !((done.load() >> *dev) & 1ull);
+}
+
+void mark_device(std::atomic<unsigned long long>& done, int dev) {
+  if (dev >= 0 && dev < 64) done.fetch_or(1ull << dev);
+}
+
 template <int THREADS, int ITEMS, bool LOOKBACK, typename Word, int KB>
 void launch_rank_scatter(const PassArgs& a, cudaStream_t stream) {
   constexpr int kBytes = sizeof(RankShared<THREADS, ITEMS>);
   auto kernel = rank_scatter_kernel<THREADS, ITEMS, LOOKBACK, Word, KB>;
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       kBytes);
-  if constexpr (KB < 4)  // room for rank_ctas CTAs an SM
-    cudaFuncSetAttribute(kernel,
-                         cudaFuncAttributePreferredSharedMemoryCarveout,
-                         cudaSharedmemCarveoutMaxShared);
+  // once an instantiation and device, not at every launch
+  static std::atomic<unsigned long long> attributes_set{0};
+  int dev = 0;
+  if (todo_on_device(attributes_set, &dev)) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         kBytes);
+    if constexpr (KB < 4)  // room for rank_ctas CTAs an SM
+      cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                           cudaSharedmemCarveoutMaxShared);
+    mark_device(attributes_set, dev);
+  }
   kernel<<<(unsigned)a.nblocks, THREADS, kBytes, stream>>>(
       a.digit, a.n, a.shift, a.bits, a.kk, a.base, a.lb, a.plan, a.nblocks,
       a.planes, a.nplanes, a.dest);
+}
+
+// The (tile, threads) shapes rank_scatter_shape dispatches on.
+bool rank_shape_ok(int tile, int threads) {
+  return (threads == 256 && (tile == 8192 || tile == 4096 || tile == 2048)) ||
+         (threads == 128 && (tile == 4096 || tile == 2048));
 }
 
 // Dispatch on the tile shape; false if (tile, threads) is not compiled.
@@ -1296,11 +1330,77 @@ bool radix_ok(int radix) {
   return radix >= 2 && radix <= kMaxRadix && (radix & (radix - 1)) == 0;
 }
 
+// The current device's SM count, asked once a device.
 int num_sms() {
+  static std::atomic<unsigned long long> known{0};
+  static std::atomic<int> count[64];
   int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
+  if (!todo_on_device(known, &dev)) return count[dev].load();
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return sms > 0 ? sms : 1;
+  sms = sms > 0 ? sms : 1;
+  if (dev >= 0 && dev < 64) {
+    count[dev].store(sms);
+    mark_device(known, dev);
+  }
+  return sms;
+}
+
+// The pass_histograms launch over a zeroed (passes0 + passes1, R) table
+// `out`: x0 carries passes0 passes, x1 (if passes1 > 0) the next passes1.
+void launch_pass_histograms(const void* x0, int passes0, const void* x1,
+                            int passes1, long long n, int bits, int key_bytes,
+                            KeyKind kk, int32_t* out, cudaStream_t s) {
+  const HistPlanes hp = {{x0, x1}, {passes0, passes1}, {0, passes0}};
+  const long long per_cta = (long long)kHistWarps * 32 * kHistUnroll * 16 /
+                            key_bytes;
+  long long ctas = (n + per_cta - 1) / per_cta;
+  const long long most = 3ll * num_sms();
+  if (ctas > most) ctas = most;
+  const dim3 grid((unsigned)ctas, passes1 > 0 ? 2u : 1u);
+  if (key_bytes == 4)
+    pass_histograms_kernel<4><<<grid, kHistThreads, 0, s>>>(hp, n, bits, kk,
+                                                            out);
+  else if (key_bytes == 2)
+    pass_histograms_kernel<2><<<grid, kHistThreads, 0, s>>>(hp, n, bits, kk,
+                                                            out);
+  else
+    pass_histograms_kernel<1><<<grid, kHistThreads, 0, s>>>(hp, n, bits, kk,
+                                                            out);
+}
+
+// Whether pass_histograms takes these planes: passes0 digits of bits bits
+// within keys of key_bytes bytes at x0, and passes1 (>= 0) within the int32
+// words at x1, a second plane that only 4-byte keys have.
+bool hist_planes_ok(const void* x0, int passes0, const void* x1, int passes1,
+                    int bits, int key_bytes) {
+  return passes0 >= 1 && passes1 >= 0 && (key_bytes == 4 || passes1 == 0) &&
+         (uintptr_t)x0 % key_bytes == 0 &&
+         (passes1 == 0 || (uintptr_t)x1 % 4 == 0) &&
+         (passes0 - 1) * bits < 8 * key_bytes && (passes1 - 1) * bits <= 31;
+}
+
+// One rst_sort_planes call's workspace, in bytes from its 16-byte aligned
+// start: the (P, R) pass table, then P look-back scratch rows (each
+// onesweep_pass_bytes, so each stays 16-byte aligned), zeroed together by
+// one memset; then, past kMaxPlanes planes, the (R, B) tile bases, which
+// every pass's look-back launch writes before its base-table launches read
+// them, so they are not zeroed.
+struct SortLayout {
+  long long rows;    // offset of the first scratch row
+  long long row;     // bytes a scratch row
+  long long zeroed;  // the table and the rows
+  long long total;   // and the tile bases
+};
+
+SortLayout sort_layout(long long n, int tile, int radix, int npasses,
+                       int nplanes) {
+  SortLayout l;
+  l.rows = ((long long)npasses * radix * 4 + 15) / 16 * 16;
+  l.row = onesweep_pass_bytes(n, tile, radix);
+  l.zeroed = l.rows + npasses * l.row;
+  const long long nblocks = (n + tile - 1) / tile;
+  l.total = l.zeroed + (nplanes > kMaxPlanes ? radix * nblocks * 4 : 0);
+  return l;
 }
 
 // The digit source holds keys of key_bytes bytes (1, 2 or 4) of kind `kind`
@@ -1409,32 +1509,17 @@ int rst_pass_histograms(const void* x0, int passes0, const void* x1,
                         int passes1, long long n, int radix, int key_bytes,
                         int kind, void* out, void* stream) {
   const int bits = radix_bits(radix);
-  const int width = 8 * key_bytes;
   KeyKind kk;
-  if (!radix_ok(radix) || n <= 0 || n >= (1ll << 31) || passes0 < 1 ||
-      passes1 < 0 || !key_kind(key_bytes, kind, &kk) ||
-      (key_bytes < 4 && passes1 > 0) || (uintptr_t)x0 % key_bytes ||
-      (passes1 > 0 && (uintptr_t)x1 % 4) || (passes0 - 1) * bits >= width ||
-      (passes1 - 1) * bits > 31)
+  if (!radix_ok(radix) || n <= 0 || n >= (1ll << 31) ||
+      !key_kind(key_bytes, kind, &kk) ||
+      !hist_planes_ok(x0, passes0, x1, passes1, bits, key_bytes))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int rows = passes0 + passes1;
   cudaError_t e = cudaMemsetAsync(out, 0, (size_t)rows * radix * 4, s);
   if (e != cudaSuccess) return (int)e;
-  const HistPlanes hp = {{x0, x1}, {passes0, passes1}, {0, passes0}};
-  const long long per_cta = (long long)kHistWarps * 32 * kHistUnroll * 16 /
-                            key_bytes;
-  long long ctas = (n + per_cta - 1) / per_cta;
-  const long long most = 3ll * num_sms();
-  if (ctas > most) ctas = most;
-  const dim3 grid((unsigned)ctas, passes1 > 0 ? 2u : 1u);
-  int32_t* o = (int32_t*)out;
-  if (key_bytes == 4)
-    pass_histograms_kernel<4><<<grid, kHistThreads, 0, s>>>(hp, n, bits, kk, o);
-  else if (key_bytes == 2)
-    pass_histograms_kernel<2><<<grid, kHistThreads, 0, s>>>(hp, n, bits, kk, o);
-  else
-    pass_histograms_kernel<1><<<grid, kHistThreads, 0, s>>>(hp, n, bits, kk, o);
+  launch_pass_histograms(x0, passes0, x1, passes1, n, bits, key_bytes, kk,
+                         (int32_t*)out, s);
   return (int)cudaGetLastError();
 }
 
@@ -1489,6 +1574,125 @@ int rst_onesweep_pass(const void* const* digsrc, long long n, int tile,
           : rank_scatter_launch<true, unsigned long long>(key_bytes, tile,
                                                           threads, a, s);
   if (!ok) return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// Bytes of the workspace rst_sort_planes needs for P = npasses passes of
+// nplanes planes of n elements (0 for arguments it refuses).
+long long rst_sort_workspace_bytes(long long n, int tile, int radix,
+                                   int npasses, int nplanes) {
+  if (n <= 0 || tile <= 0 || !radix_ok(radix) || npasses < 1 ||
+      npasses > kMaxPasses || nplanes < 0)
+    return 0;
+  return sort_layout(n, tile, radix, npasses, nplanes).total;
+}
+
+// A whole sort or partition, enqueued on `stream` with no host read and no
+// sync: one memset of the workspace's pass table and scratch rows, one
+// pass_histograms launch into the table, then for each of the P = passes0
+// + passes1 passes one look-back launch of the first kMaxPlanes planes and
+// one base-table launch of each further group of kMaxPlanes, each from the
+// tile bases its pass's look-back launch wrote, every launch with the
+// sort's Plan.  What rst_pass_histograms, rst_onesweep_pass and
+// rst_rank_scatter launch for a sort, in one call.
+//
+// keys: the key planes in IN, keys[0] with passes0 passes, keys[1] with
+// passes1 (read only when passes1 > 0).  digit_moves: keys[w] is ins[w] and
+// moves with the planes; else keys[0] is a digit plane that does not move
+// (a partition's ids: int32, passes1 0).  key_bytes and kind are keys[0]'s,
+// the planes' sets as in rst_rank_scatter, any number of planes (tmps may
+// be null when P is 1).  workspace: rst_sort_workspace_bytes(n, tile,
+// radix, P, nplanes) bytes, 16-byte aligned; its first P * radix int32
+// hold the pass table after the call.  launches[3] is set to the
+// pass_histograms, look-back and base-table launches made.
+int rst_sort_planes(long long n, int radix, int tile, int threads,
+                    int key_bytes, int kind, const void* const* keys,
+                    int passes0, int passes1, const void* const* ins,
+                    void* const* outs, void* const* tmps, int nplanes,
+                    int digit_moves, void* workspace,
+                    long long workspace_bytes, void* stream, int* launches) {
+  const int bits = radix_bits(radix);
+  const int npasses = passes0 + passes1;
+  const int nkeys = passes1 > 0 ? 2 : 1;
+  if (keys == nullptr || launches == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const void* key0 = keys[0];
+  const void* key1 = passes1 > 0 ? keys[1] : nullptr;
+  KeyKind kk;
+  if (!radix_ok(radix) || n <= 0 || n >= (1ll << 31) ||
+      !rank_shape_ok(tile, threads) || !key_kind(key_bytes, kind, &kk) ||
+      key0 == nullptr || (passes1 > 0 && key1 == nullptr) ||
+      !hist_planes_ok(key0, passes0, key1, passes1, bits, key_bytes) ||
+      npasses > kMaxPasses || nplanes < 0 ||
+      (nplanes > 0 && (ins == nullptr || outs == nullptr)) ||
+      (npasses > 1 && nplanes > 0 && tmps == nullptr) ||
+      (uintptr_t)workspace % 16 ||
+      workspace_bytes <
+          sort_layout(n, tile, radix, npasses, nplanes).total)
+    return (int)cudaErrorInvalidValue;
+  if (digit_moves) {
+    if (nplanes < nkeys) return (int)cudaErrorInvalidValue;
+    for (int w = 0; w < nkeys; ++w)
+      if (keys[w] != ins[w]) return (int)cudaErrorInvalidValue;
+  } else if (passes1 > 0 || key_bytes != 4) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const SortLayout l = sort_layout(n, tile, radix, npasses, nplanes);
+  cudaStream_t s = (cudaStream_t)stream;
+  char* ws = (char*)workspace;
+  int32_t* table = (int32_t*)ws;
+  int32_t* bases = nplanes > kMaxPlanes ? (int32_t*)(ws + l.zeroed) : nullptr;
+  cudaError_t e = cudaMemsetAsync(ws, 0, (size_t)l.zeroed, s);
+  if (e != cudaSuccess) return (int)e;
+  launch_pass_histograms(key0, passes0, key1, passes1, n, bits, key_bytes,
+                         kk, table, s);
+  launches[0] = 1;
+  launches[1] = launches[2] = 0;
+  const int groups = nplanes > kMaxPlanes
+                         ? (nplanes + kMaxPlanes - 1) / kMaxPlanes
+                         : 1;
+  PassArgs a;
+  a.n = n;
+  a.bits = bits;
+  a.kk = kk;
+  a.nblocks = (n + tile - 1) / tile;
+  a.dest = nullptr;
+  for (int p = 0; p < npasses; ++p) {
+    const int w = p < passes0 ? 0 : 1;
+    a.shift = (w ? p - passes0 : p) * bits;
+    if (digit_moves) {
+      a.digit.buf[kIn] = ins[w];
+      a.digit.buf[kOut] = outs[w];
+      a.digit.buf[kTmp] = tmps ? tmps[w] : outs[w];
+    } else {
+      a.digit.buf[kIn] = a.digit.buf[kOut] = a.digit.buf[kTmp] = key0;
+    }
+    a.plan = {table, {key0, key1}, npasses, passes0, p};
+    for (int g = 0; g < groups; ++g) {
+      const int lo = g * kMaxPlanes;
+      const int k = nplanes - lo < kMaxPlanes ? nplanes - lo : kMaxPlanes;
+      fill_planes(a.planes, ins ? ins + lo : nullptr,
+                  outs ? outs + lo : nullptr, tmps ? tmps + lo : nullptr, k);
+      a.nplanes = k;
+      if (g == 0) {
+        char* row = ws + l.rows + p * l.row;
+        a.base = nullptr;
+        a.lb = {table + (long long)p * radix, row + 16, (unsigned*)row,
+                bases};
+        if (n < (1ll << 30))
+          rank_scatter_launch<true, unsigned>(key_bytes, tile, threads, a, s);
+        else
+          rank_scatter_launch<true, unsigned long long>(key_bytes, tile,
+                                                        threads, a, s);
+        ++launches[1];
+      } else {
+        a.base = bases;
+        a.lb = {nullptr, nullptr, nullptr, nullptr};
+        rank_scatter_launch<false, unsigned>(key_bytes, tile, threads, a, s);
+        ++launches[2];
+      }
+    }
+  }
   return (int)cudaGetLastError();
 }
 

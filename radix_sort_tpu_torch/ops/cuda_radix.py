@@ -47,8 +47,11 @@ def _on_cuda(t: torch.Tensor) -> bool:
                       f"unsupported device {t.device}")
 
 
-def _stream(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+def _stream(t: torch.Tensor) -> int:
+    """The current stream of ``t``'s card as a raw pointer: the accessor
+    torch's generated kernel launchers use, where ``current_stream()``
+    builds a Stream object (a fifth of a small sort's host time)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def _check_plane(x: torch.Tensor, what: str, device=None,
@@ -244,11 +247,11 @@ def _ptrs(tensors):
         *[None if t is None else t.data_ptr() for t in tensors])
 
 
-def _launch_groups(lib, planes, outs, tmps=None):
+def _launch_groups(planes, outs, tmps=None):
     """(ins, outs, tmps, count) ctypes arrays for each launch (tmps None
     where ``tmps`` is): at most rst_max_planes() planes a launch, and one
     launch with no plane."""
-    step = lib.rst_max_planes()
+    step = _build.max_planes()
     for lo in range(0, max(len(planes), 1), step):
         hi = lo + step
         yield (_ptrs(planes[lo:hi]), _ptrs(outs[lo:hi]),
@@ -289,7 +292,7 @@ def rank_scatter(digit_src: torch.Tensor, planes, base: torch.Tensor,
     base_rb = base.T.contiguous()  # digit-major (R, B); free from the stitch
     lib = _build.lib()
     # more planes than one launch takes: further launches re-rank the tile
-    for g, (ins, outp, _, k) in enumerate(_launch_groups(lib, planes, outs)):
+    for g, (ins, outp, _, k) in enumerate(_launch_groups(planes, outs)):
         _build.check(lib.rst_rank_scatter(
             _ptrs((digit_src, None, None)), n, tile, threads, shift, radix,
             *_key_args(digit_src, kind), base_rb.data_ptr(), ins, outp, None,
@@ -618,7 +621,7 @@ def onesweep_pass(digit_src: torch.Tensor, planes, counts: torch.Tensor,
     plan_args = _NO_PLAN if plan is None else (
         plan.table.data_ptr(), plan.table.shape[0], plan.passes0, plan.index,
         _ptrs(tuple(plan.keys) + (None,) * (2 - len(plan.keys))))
-    groups = list(_launch_groups(lib, planes, outs, tmp))
+    groups = list(_launch_groups(planes, outs, tmp))
     B = -(-n // tile)
     # later plane groups run in base-table mode from the first's tile bases
     base_rb = (torch.empty((radix, B), dtype=torch.int32, device=dev)
@@ -643,6 +646,154 @@ def onesweep_pass(digit_src: torch.Tensor, planes, counts: torch.Tensor,
 
 onesweep_pass.launches = 0
 onesweep_pass.narrow_launches = {8: 0, 16: 0}
+
+
+# ------------------------------------------------------ a whole sort, K1-K4
+#
+# Every launch of a sort or a partition from one call into the library
+# (``rst_sort_planes``): the memset of one workspace (the pass table and
+# every pass's look-back scratch), the ``pass_histograms`` launch and each
+# pass's ``onesweep_pass`` launch (and its base-table launches past
+# rst_max_planes() planes), each pass deciding on the card from the table
+# whether it runs.  Nothing of that depends on the data, so the host
+# checks the planes once and makes one ctypes call, where the loop of
+# ``sort_passes_plain`` checks them and builds its arrays at every launch.
+
+def _sort_sets(key_planes, passes, planes, radix: int, kind: str, digit):
+    """The sort's key planes and its IN set, checked once: (keys, ins,
+    passes, moves)."""
+    passes = tuple(int(p) for p in passes)
+    if digit is None:
+        keys = tuple(key_planes)
+        ins = keys + tuple(planes)
+    else:
+        if tuple(key_planes):
+            raise ValueError("a digit plane takes the key planes' place")
+        keys, ins = (digit,), tuple(planes)
+    _check_radix(radix)
+    bits = radix.bit_length() - 1
+    if not 1 <= len(keys) <= MAX_HIST_PLANES or len(passes) != len(keys):
+        raise ValueError(f"a sort takes 1 to {MAX_HIST_PLANES} key planes "
+                         f"and a pass count for each")
+    key = keys[0]
+    _check_key_plane(key, kind, "sort key plane")
+    if digit is not None and key.dtype != torch.int32:
+        raise ValueError("a digit plane that does not move is int32")
+    width = 8 * key.element_size()
+    if width < 32 and len(keys) > 1:
+        raise ValueError("a narrow key plane is the sort's only key plane")
+    if (any(p < 1 or (p - 1) * bits >= width for p in passes)
+            or sum(passes) > MAX_PLAN_PASSES):
+        raise ValueError(f"pass counts {passes} do not fit {width}-bit "
+                         f"planes of {bits}-bit digits")
+    n, dev = key.numel(), key.device
+    narrow = width < 32 and n > 0
+    for i, p in enumerate(ins):  # ins[:len(keys)] are the keys that move
+        if i or digit is not None:
+            _check_plane(p, "sort plane", dev)
+            if narrow and p.data_ptr() == key.data_ptr():
+                raise ValueError("an int32 plane aliases the narrow key "
+                                 "plane")
+        if p.numel() != n:
+            raise ValueError("every plane must have the key plane's length")
+    return keys, ins, passes, digit is None
+
+
+def sort_passes_plain(key_planes, passes, planes, radix: int, tile: int,
+                      threads: int = DEFAULT_CONFIG.threads_per_cta,
+                      kind: str = "u", digit: torch.Tensor | None = None, *,
+                      torch_only: bool = False):
+    """The plain version of ``sort_passes``: one ``pass_histograms``, then
+    one ``onesweep_pass`` a pass with its ``PassPlan``, each through this
+    module's attribute, so it is the plain torch version on a CPU tensor
+    and the per-pass launches on a card.  ``torch_only`` calls
+    ``pass_histograms_plain`` and ``onesweep_pass_plain`` themselves: plain
+    torch on the card too."""
+    keys, ins, passes, _ = _sort_sets(key_planes, passes, planes, radix,
+                                      kind, digit)
+    return _per_pass(keys, ins, passes, radix, tile, threads, kind,
+                     torch_only)
+
+
+def _per_pass(keys, ins, passes, radix, tile, threads, kind, torch_only):
+    key = keys[0]
+    if key.numel() == 0:
+        return _empty_sort(ins, passes, radix, key.device)
+    hist = pass_histograms_plain if torch_only else pass_histograms
+    table = hist(keys, passes, radix, kind)
+    P = sum(passes)
+    bits = radix.bit_length() - 1
+    scratch = (onesweep_scratch(key.numel(), radix, tile, P, key.device)
+               if _on_cuda(key) and not torch_only else [None] * P)
+    outs = tuple(torch.empty_like(p) for p in ins)
+    tmp = tuple(torch.empty_like(p) for p in ins) if P > 1 else None
+    for p in range(P):
+        w = int(p >= passes[0])
+        shift = (p - w * passes[0]) * bits
+        plan = PassPlan(table, p, keys, passes[0], tmp)
+        if torch_only:
+            onesweep_pass_plain(keys[w], ins, radix, tile, shift, kind=kind,
+                                plan=plan, outs=outs)
+        else:
+            onesweep_pass(keys[w], ins, table[p], radix, tile, shift,
+                          scratch=scratch[p], outs=outs, threads=threads,
+                          kind=kind, plan=plan)
+    return outs, table
+
+
+def _empty_sort(ins, passes, radix: int, device):
+    return (tuple(torch.empty_like(p) for p in ins),
+            torch.zeros((sum(passes), radix), dtype=torch.int32,
+                        device=device))
+
+
+def sort_passes(key_planes, passes, planes, radix: int, tile: int,
+                threads: int = DEFAULT_CONFIG.threads_per_cta,
+                kind: str = "u", digit: torch.Tensor | None = None):
+    """A stable LSD sort of planes by the digits of its key planes: key
+    plane w (one, or a 64-bit key's lo and hi words) carries passes[w]
+    digits, pass j's at shift j * log2(radix), and moves with ``planes``
+    (int32).  A narrow key plane of ``kind`` gives its image's digits.
+    ``digit`` (int32 ids) in place of key planes is a partition's: its one
+    pass count of digits orders ``planes`` and it does not move.
+
+    Returns (OUT, table): the key planes and ``planes`` sorted, in storage
+    of their own, and the (P, R) int32 pass table (``pass_histograms``; on
+    a card a view into the call's workspace).
+
+    On a card: one call of ``rst_sort_planes``, which enqueues every launch
+    of the sort with no host read, and the allocations (OUT, TMP where P >
+    1, one workspace); the launch counters advance as the per-pass
+    launches advance them.  On the CPU: ``sort_passes_plain``."""
+    keys, ins, passes, moves = _sort_sets(key_planes, passes, planes, radix,
+                                          kind, digit)
+    key = keys[0]
+    if not _on_cuda(key):
+        return _per_pass(keys, ins, passes, radix, tile, threads, kind,
+                         False)
+    n, dev = key.numel(), key.device
+    if n == 0:
+        return _empty_sort(ins, passes, radix, dev)
+    P = sum(passes)
+    lib = _build.lib()
+    nbytes = lib.rst_sort_workspace_bytes(n, tile, radix, P, len(ins))
+    # int32 words (nbytes is a multiple of 16): the table is a view of it
+    ws = torch.empty(nbytes // 4, dtype=torch.int32, device=dev)
+    outs = tuple(torch.empty_like(p) for p in ins)
+    tmp = tuple(torch.empty_like(p) for p in ins) if P > 1 else None
+    launches = (ctypes.c_int * 3)()
+    _build.check(lib.rst_sort_planes(
+        n, radix, tile, threads, *_key_args(key, kind),
+        _ptrs(keys + (None,) * (2 - len(keys))), passes[0],
+        passes[1] if len(passes) > 1 else 0, _ptrs(ins), _ptrs(outs),
+        None if tmp is None else _ptrs(tmp), len(ins), int(moves),
+        ws.data_ptr(), nbytes, _stream(key), launches), "sort_passes")
+    width = 8 * key.element_size()
+    hist, looked, based = launches
+    _count(pass_histograms, width, hist)
+    _count(onesweep_pass, width, looked)
+    rank_scatter.launches += based
+    return outs, ws[:P * radix].view(P, radix)
 
 
 def sort_biased(keys_bits: torch.Tensor, payloads,
@@ -684,10 +835,10 @@ _COUNTED = (digit_histogram, exclusive_scan, rank_scatter, pass_histograms,
             onesweep_pass)
 
 
-def _count(fn, key_bits: int) -> None:
-    fn.launches += 1
+def _count(fn, key_bits: int, launches: int = 1) -> None:
+    fn.launches += launches
     if key_bits < 32:
-        fn.narrow_launches[key_bits] += 1
+        fn.narrow_launches[key_bits] += launches
 
 
 def launch_counts() -> dict:

@@ -9,9 +9,11 @@ the kernels take its digits from its sortable image
 (``sort_narrow_planes``).  A sort is
 one ``pass_histograms`` launch over the key word planes and one
 ``onesweep_pass`` launch for every pass, moving every plane by the digit
-of one of them.  Each launch decides on the card, from the (P, R) table,
-whether one digit fills its pass (then it is the identity and returns) and
-which buffer set it reads and writes, as the JAX engine decides with
+of one of them, all enqueued on a card by one call into the kernel
+library (``cuda_radix.sort_passes``).  Each launch decides on the card,
+from the (P, R) table, whether one digit fills its pass (then it is the
+identity and returns) and which buffer set it reads and writes, as the
+JAX engine decides with
 ``lax.cond`` (``pallas_stream.py:572``): the host reads nothing back, and
 the result is always new storage, never the caller's tensors.
 
@@ -51,35 +53,23 @@ def _empty_like_all(planes) -> tuple:
 
 def _sort_planes(planes, passes, radix: int, tile: int,
                  threads: int = _THREADS, kind: str = "u"):
-    """Onesweep LSD loop: plane w (w < len(passes)) carries passes[w]
+    """Onesweep LSD sort: plane w (w < len(passes)) carries passes[w]
     digits, pass j's at shift j * log2(radix); every plane moves every
-    pass.  One pass_histograms launch gives every pass's digit totals, and
-    every pass is one onesweep_pass launch whose CTAs read the plan from
-    the table on the card: a pass that one digit fills is the identity and
-    returns at once (the JAX engine's ``lax.cond`` on ``max(totals) ==
-    padded``, the reference's CPU early-exit in CRadixSortCPU.h).  The
-    passes that run ping-pong between two buffer sets allocated here, OUT
-    and TMP, so that the last writes OUT; when none runs, the last launch
-    copies the planes into OUT.  Their look-back scratch, a row a pass, is
-    zeroed by one memset.  A narrow key plane (planes[0], the only key
-    plane) of ``kind`` gives the digits of its image.  Returns OUT: the
-    planes sorted, in storage of their own."""
+    pass.  One ``cuda_radix.sort_passes`` call: on a card one call into the
+    kernel library enqueues one pass_histograms launch, which gives every
+    pass's digit totals, and one onesweep_pass launch a pass, whose CTAs
+    read the plan from the table on the card: a pass that one digit fills
+    is the identity and returns at once (the JAX engine's ``lax.cond`` on
+    ``max(totals) == padded``, the reference's CPU early-exit in
+    CRadixSortCPU.h).  The passes that run ping-pong between two buffer
+    sets, OUT and TMP, so that the last writes OUT; when none runs, the
+    last launch copies the planes into OUT.  A narrow key plane (planes[0],
+    the only key plane) of ``kind`` gives the digits of its image.  Returns
+    OUT: the planes sorted, in storage of their own."""
     planes = tuple(planes)
-    n = planes[0].numel()
-    bits = radix.bit_length() - 1
-    keys = planes[:len(passes)]
-    hist = cr.pass_histograms(keys, passes, radix, kind)
-    rows = [(w, j * bits) for w, np_ in enumerate(passes) for j in range(np_)]
-    on_card = planes[0].device.type == "cuda"
-    scratch = (cr.onesweep_scratch(n, radix, tile, len(rows), planes[0].device)
-               if on_card else [None] * len(rows))
-    outs = _empty_like_all(planes)
-    tmp = _empty_like_all(planes) if len(rows) > 1 else None
-    for p, (w, shift) in enumerate(rows):
-        cr.onesweep_pass(planes[w], planes, hist[p], radix, tile, shift,
-                         scratch=scratch[p], outs=outs, threads=threads,
-                         kind=kind,
-                         plan=cr.PassPlan(hist, p, keys, passes[0], tmp))
+    k = len(passes)
+    outs, _ = cr.sort_passes(planes[:k], passes, planes[k:], radix, tile,
+                             threads, kind)
     return outs
 
 
@@ -168,12 +158,9 @@ def partition_planes(bucket_ids: torch.Tensor, planes_i32, num_buckets: int,
             num_buckets, dtype=torch.int32, device=ids.device)
     radix = max(2, _next_pow2(num_buckets))
     if radix <= 256:
-        hist = cr.pass_histograms((ids,), (1,), radix)
-        outs, _ = cr.onesweep_pass(ids, planes, hist[0], radix, tile, 0,
-                                   outs=_empty_like_all(planes),
-                                   threads=threads,
-                                   plan=cr.PassPlan(hist, 0, (ids,), 1))
-        return outs, hist[0, :num_buckets]
+        outs, table = cr.sort_passes((), (1,), planes, radix, tile, threads,
+                                     digit=ids)
+        return outs, table[0, :num_buckets]
     bits = radix.bit_length() - 1
     out = _sort_planes((ids,) + planes, (-(-bits // 8),), 256, tile, threads)
     return out[1:], bucket_counts(ids, num_buckets)

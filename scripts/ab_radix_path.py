@@ -7,15 +7,22 @@ tree's ``radix_sort_tpu_torch`` and builds its kernels there.  It times the
 radix-path phases of ``chip_smoke.py`` with the same method as
 ``chip_smoke.time_ms`` (CUDA events around one call, median of 5 after a
 warm-up): ``sort_kv`` of u32 keys + int32 iota at 2^27 over the five
-distributions, ``sort_kv`` of u64 keys at 2^27, ``sort`` of u32 keys at
+distributions, ``sort_kv`` of u64 keys at 2^27 (RandomDistributed and
+Zeros), ``sort`` of u32 keys at
 2^25 (the headline's call) and at 2^20 (config 1, with
 ``engine="torch_sort"`` beside it), ``sort_kv`` of uint8 keys
 (RandomDistributed, Zeros) and float16 keys at 2^27 (the narrow pass),
-config 3 (filter -> aggregate over 2^26 rows) and config 4 (a 2^20 x 2^18
-join).  Every sort is validated on the card (sorted, payload is the
+config 3 (filter -> aggregate over 2^26 rows), config 4 (a 2^20 x 2^18
+join, beside ``engine="torch_sort"``) and ``[dist1]``'s sorts on a world
+of one NCCL rank in the worker (``dist_sort_kv`` u32 KV 2^27 and config 5
+at 2^26 rows).  Every sort is validated on the card (sorted, payload is the
 permutation that produced the keys) and configs 3 and 4 against numpy.
-Rows named "device" are ``chip_smoke.device_ms`` of the same call (50
-back to back, the host's work out of the window); "idle share" is 1 -
+Every sort also has a "device" row, ``chip_smoke.device_ms`` of the same
+call (50 back to back, the host's work out of the window); "host enqueue
+us" rows (config 1, with torch.sort beside it, the headline and config
+4 on both engines) are
+``chip_smoke.enqueue_us``: ``time.perf_counter`` around one call with no
+sync, the card idle before it, median of 20; "idle share" is 1 -
 torch.profiler's device time over the event time of 10 back-to-back
 key-only sorts at 2^25, as ``chip_smoke.py`` ``[profile]`` takes it.
 
@@ -63,6 +70,7 @@ def worker() -> dict:
     times = {}
     cases = [(ds, 27, True) for ds in rt.datasets.make_datasets(np.uint32, 0)]
     cases += [(rt.datasets.RandomDistributed(np.uint64, seed=0), 27, True),
+              (rt.datasets.Zeros(np.uint64), 27, True),
               (rt.datasets.RandomDistributed(np.uint32, seed=0), 25, False),
               (rt.datasets.RandomDistributed(np.uint32, seed=0), 20, False)]
     cases += [((name, dt), 27, True) for name, dt in (
@@ -93,11 +101,14 @@ def worker() -> dict:
         so = rt.dtypes.signed_order(so)
         _check(bool((so[1:] >= so[:-1]).all()), f"{what}: not sorted")
         times[what] = turns.time_ms(run)
-        if log2n == 20 or keys.element_size() < 4:
-            times[f"{what} device"] = turns.device_ms(run)
+        times[f"{what} device"] = turns.device_ms(run)
+        if log2n in (20, 25):  # config 1 and the headline
+            times[f"{what} host enqueue us"] = turns.enqueue_us(run)
         if log2n == 20:  # config 1 beside torch.sort
-            times[f"{what} engine=torch_sort"] = turns.time_ms(
-                lambda: rt.sort(keys, engine="torch_sort"))
+            base = lambda: rt.sort(keys, engine="torch_sort")  # noqa: E731
+            times[f"{what} engine=torch_sort"] = turns.time_ms(base)
+            times[f"{what} engine=torch_sort host enqueue us"] = (
+                turns.enqueue_us(base))
         if log2n == 25:
             times["idle share sort u32 2^25 x10"] = _idle_share(run)
         del keys, ko, bits, so
@@ -129,9 +140,53 @@ def worker() -> dict:
     _, stats = join.hash_join(probe, build, "k")
     _check(int(stats["match_count"]) == int(np.isin(pk, bk).sum()),
            "config4")
-    times["config4 2^20 x 2^18"] = turns.time_ms(
-        lambda: join.hash_join(probe, build, "k"))
+    for name, cfg in (("", rt.DEFAULT_CONFIG),
+                      (" engine=torch_sort", rt.SortConfig(
+                          engine="torch_sort"))):
+        run = lambda: join.hash_join(probe, build, "k", config=cfg)  # noqa
+        times[f"config4 2^20 x 2^18{name}"] = turns.time_ms(run)
+        times[f"config4 2^20 x 2^18{name} host enqueue us"] = (
+            turns.enqueue_us(run))
+    del probe, build
+    times.update(dist1(rt, dev))
     return {"device": torch.cuda.get_device_name(0), "times": times}
+
+
+def dist1(rt, dev) -> dict:
+    """[dist1]'s sorts, in this process: a world of one NCCL rank on the
+    card (``mesh.make_mesh``), ``dist_sort_kv`` of u32 keys + int32 iota
+    at 2^27 (RandomDistributed, Zeros; checked against ``sort_kv``) and
+    BASELINE config 5 at 2^26 probe rows (``torch_baseline_configs.
+    config5_query``, which checks it): its three operators as one query."""
+    import torch
+
+    from radix_sort_tpu_torch.parallel import dist_sort, mesh as pmesh
+
+    sys.path.insert(0, os.path.join(os.getcwd(), "scripts"))
+    import torch_baseline_configs as tbc
+
+    m = pmesh.make_mesh(device=dev)
+    times = {}
+    n = 1 << 27
+    iota = torch.arange(n, dtype=torch.int32, device=dev)
+    for ds in (rt.datasets.RandomDistributed(np.uint32, seed=0),
+               rt.datasets.Zeros(np.uint32)):
+        keys = rt.dtypes.tensor_from_numpy(ds.generate(n), dev)
+        ks, vs, ovf = dist_sort.dist_sort_kv(keys, iota, mesh=m)
+        ko, po = rt.sort_kv(keys, iota)
+        _check(not bool(ovf) and torch.equal(ks.view(torch.int32),
+                                             ko.view(torch.int32))
+               and torch.equal(vs, po),
+               f"[dist1] dist_sort_kv {ds.name}: differs from sort_kv")
+        times[f"[dist1] dist_sort_kv u32 {ds.name} 2^27"] = turns.time_ms(
+            lambda: dist_sort.dist_sort_kv(keys, iota, mesh=m))
+        del keys, ks, vs, ko, po
+    del iota
+    r = tbc.config5_query(m, tbc.config5_probe(1 << 26))
+    _check(all(r[k] for k in ("join_valid", "agg_valid", "sort_valid")),
+           "[dist1] config 5")
+    times["[dist1] config5 2^26 rows"] = r["three_ms"]
+    return times
 
 
 def main() -> int:

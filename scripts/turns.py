@@ -38,6 +38,7 @@ def _load_chip_smoke():
 _smoke = _load_chip_smoke()
 time_ms = _smoke.time_ms  # one call's event time, median of 5
 device_ms = _smoke.device_ms  # a call's share of 50 back-to-back calls
+enqueue_us = _smoke.enqueue_us  # the host's enqueue of one call, no sync
 
 
 def profiled_ms(fn) -> float:
