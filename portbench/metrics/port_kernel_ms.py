@@ -1,0 +1,13 @@
+"""port_kernel_ms: device ms a call in kernels that are not PyTorch's own
+library's (``trace.is_library``): the program's hand-written kernels,
+whatever their names."""
+
+from portbench import trace
+
+
+def read(run):
+    if not run.traced:
+        return None
+    return trace.per_call_ms(
+        run.traced.trace,
+        lambda n, k: k == trace.KERNEL and not trace.is_library(n))
