@@ -1,0 +1,13 @@
+"""groupby_device_ms: device ms a call of the work launched under the
+program's ``query.group_by`` span (the query's group-by step and every span
+below it), in the stretch with the program's spans on.  None where the
+program recorded no such span."""
+
+from portbench import spans
+
+
+def read(run):
+    st = spans.stretch(run)
+    if st is None:
+        return None
+    return spans.device_ms_under(st, "query.group_by")

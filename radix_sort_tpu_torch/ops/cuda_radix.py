@@ -33,6 +33,7 @@ import torch
 from .. import _build, dtypes
 from ..config import DEFAULT_CONFIG, SortConfig
 from ..status import EngineError, OperationStatus
+from ..utils import profiling
 from . import ranking
 
 MAX_ELEMS = (1 << 31) - 1
@@ -764,7 +765,15 @@ def sort_passes(key_planes, passes, planes, radix: int, tile: int,
     On a card: one call of ``rst_sort_planes``, which enqueues every launch
     of the sort with no host read, and the allocations (OUT, TMP where P >
     1, one workspace); the launch counters advance as the per-pass
-    launches advance them.  On the CPU: ``sort_passes_plain``."""
+    launches advance them.  On the CPU: ``sort_passes_plain``.  One span
+    ``radix.sort_passes``."""
+    with profiling.span("radix.sort_passes", planes=len(planes)):
+        return _sort_passes(key_planes, passes, planes, radix, tile, threads,
+                            kind, digit)
+
+
+def _sort_passes(key_planes, passes, planes, radix, tile, threads, kind,
+                 digit):
     keys, ins, passes, moves = _sort_sets(key_planes, passes, planes, radix,
                                           kind, digit)
     key = keys[0]

@@ -44,6 +44,7 @@ from torch.utils import _pytree as pytree
 from .. import dtypes
 from ..config import DEFAULT_CONFIG, SortConfig
 from ..status import EngineError, OperationStatus
+from ..utils import profiling
 from . import chunked_sort, cuda_merge, cuda_radix
 
 ENGINES = ("auto", "radix", "merge", "torch_sort", "chunked")
@@ -109,10 +110,11 @@ def _sort_impl(keys: torch.Tensor, payloads, config: SortConfig):
 
 def sort(keys: torch.Tensor, config: SortConfig = DEFAULT_CONFIG,
          engine: str | None = None) -> torch.Tensor:
-    """Key-only sort (ascending, stable)."""
-    if engine is not None:
-        config = dataclasses.replace(config, engine=engine)
-    out, _ = _sort_impl(keys, (), config)
+    """Key-only sort (ascending, stable); one span ``sort``."""
+    with profiling.span("sort", rows=keys.shape[0]):
+        if engine is not None:
+            config = dataclasses.replace(config, engine=engine)
+        out, _ = _sort_impl(keys, (), config)
     return out
 
 
@@ -120,17 +122,19 @@ def sort_kv(keys: torch.Tensor, values: Any,
             config: SortConfig = DEFAULT_CONFIG, engine: str | None = None):
     """Key-value sort: ``values`` is a pytree (dict, tuple, list or one
     tensor) of 1-D tensors as long as ``keys``; every leaf is permuted with
-    the keys, stably."""
-    if engine is not None:
-        config = dataclasses.replace(config, engine=engine)
-    leaves, spec = pytree.tree_flatten(values)
-    for leaf in leaves:
-        if leaf.shape[0] != keys.shape[0]:
-            raise EngineError(
-                OperationStatus.HOST_BUFFERS_FAILED,
-                f"value leaf length {leaf.shape[0]} != keys {keys.shape[0]}")
-    out_keys, out_leaves = _sort_impl(keys, tuple(leaves), config)
-    return out_keys, pytree.tree_unflatten(list(out_leaves), spec)
+    the keys, stably.  One span ``sort_kv``."""
+    with profiling.span("sort_kv", rows=keys.shape[0]):
+        if engine is not None:
+            config = dataclasses.replace(config, engine=engine)
+        leaves, spec = pytree.tree_flatten(values)
+        for leaf in leaves:
+            if leaf.shape[0] != keys.shape[0]:
+                raise EngineError(
+                    OperationStatus.HOST_BUFFERS_FAILED,
+                    f"value leaf length {leaf.shape[0]} != keys "
+                    f"{keys.shape[0]}")
+        out_keys, out_leaves = _sort_impl(keys, tuple(leaves), config)
+        return out_keys, pytree.tree_unflatten(list(out_leaves), spec)
 
 
 def _iota(n: int, device) -> torch.Tensor:
@@ -146,7 +150,9 @@ def _iota(n: int, device) -> torch.Tensor:
 
 def argsort(keys: torch.Tensor, config: SortConfig = DEFAULT_CONFIG,
             engine: str | None = None) -> torch.Tensor:
-    """Stable argsort (int32 permutation)."""
-    _, perm = sort_kv(keys, _iota(keys.shape[0], keys.device),
-                      config=config, engine=engine)
+    """Stable argsort (int32 permutation); one span ``argsort``, the
+    ``sort_kv`` span inside it."""
+    with profiling.span("argsort", rows=keys.shape[0]):
+        _, perm = sort_kv(keys, _iota(keys.shape[0], keys.device),
+                          config=config, engine=engine)
     return perm

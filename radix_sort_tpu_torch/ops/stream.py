@@ -29,6 +29,7 @@ import torch
 
 from .. import dtypes
 from ..config import DEFAULT_CONFIG
+from ..utils import profiling
 from . import cuda_radix as cr
 
 _TILE = DEFAULT_CONFIG.tile_elems
@@ -76,18 +77,22 @@ def _sort_planes(planes, passes, radix: int, tile: int,
 def _key_word_planes(keys_bits: torch.Tensor):
     """Split sortable key bits (int32 or int64 container) into contiguous
     int32 word planes in LSD order: one for 32-bit keys, (lo, hi) for
-    64-bit keys."""
-    if keys_bits.element_size() == 4:
-        return (keys_bits.contiguous(),)
-    words = keys_bits.contiguous().view(torch.int32).view(-1, 2)
-    return (words[:, 0].contiguous(), words[:, 1].contiguous())
+    64-bit keys.  One span ``planes.split``."""
+    with profiling.span("planes.split", bytes=keys_bits.nbytes):
+        if keys_bits.element_size() == 4:
+            return (keys_bits.contiguous(),)
+        words = keys_bits.contiguous().view(torch.int32).view(-1, 2)
+        return (words[:, 0].contiguous(), words[:, 1].contiguous())
 
 
 def _join_key_word_planes(word_planes, dtype: torch.dtype) -> torch.Tensor:
-    """Inverse of :func:`_key_word_planes` into the ``dtype`` container."""
-    if len(word_planes) == 1:
-        return word_planes[0]
-    return torch.stack(tuple(word_planes), dim=1).view(dtype).view(-1)
+    """Inverse of :func:`_key_word_planes` into the ``dtype`` container.
+    One span ``planes.join``."""
+    with profiling.span("planes.join",
+                        bytes=sum(p.nbytes for p in word_planes)):
+        if len(word_planes) == 1:
+            return word_planes[0]
+        return torch.stack(tuple(word_planes), dim=1).view(dtype).view(-1)
 
 
 def sort_planes(keys_bits: torch.Tensor, payload_planes=(), radix: int = 256,
@@ -179,37 +184,40 @@ def payloads_to_planes(payloads):
     """Map 1-D payload tensors to int32 planes: 4-byte dtypes view as one
     plane, 8-byte dtypes split into (lo, hi) word planes, narrower dtypes
     widen to one plane (a 2-byte float by its bits).  Returns (planes,
-    specs) for :func:`planes_to_payloads`."""
-    planes, specs = [], []
-    for p in payloads:
-        c = dtypes.as_container(p).contiguous()
-        if c.dtype.itemsize == 4:
-            planes.append(c.view(torch.int32))
-        elif c.dtype.itemsize == 8:
-            planes += list(_key_word_planes(c.view(torch.int64)))
-        else:
-            if c.dtype.is_floating_point:  # widen the bits, not the value
-                c = c.view(torch.int16)
-            planes.append(c.to(torch.int32))
-        specs.append((p.dtype, c.dtype))
-    return tuple(planes), tuple(specs)
+    specs) for :func:`planes_to_payloads`.  One span ``planes.split``."""
+    with profiling.span("planes.split",
+                        bytes=sum(p.nbytes for p in payloads)):
+        planes, specs = [], []
+        for p in payloads:
+            c = dtypes.as_container(p).contiguous()
+            if c.dtype.itemsize == 4:
+                planes.append(c.view(torch.int32))
+            elif c.dtype.itemsize == 8:
+                planes += list(_key_word_planes(c.view(torch.int64)))
+            else:
+                if c.dtype.is_floating_point:  # widen the bits, not the value
+                    c = c.view(torch.int16)
+                planes.append(c.to(torch.int32))
+            specs.append((p.dtype, c.dtype))
+        return tuple(planes), tuple(specs)
 
 
 def planes_to_payloads(planes, specs):
-    """Inverse of :func:`payloads_to_planes`."""
-    out, i = [], 0
-    for dtype, container in specs:
-        if container.itemsize == 4:
-            c = planes[i].view(container)
-            i += 1
-        elif container.itemsize == 8:
-            c = _join_key_word_planes(planes[i:i + 2], torch.int64).view(
-                container)
-            i += 2
-        else:
-            c = planes[i].to(container)
-            if dtype.is_floating_point:
-                c = c.view(dtype)
-            i += 1
-        out.append(dtypes.from_container(c, dtype))
-    return tuple(out)
+    """Inverse of :func:`payloads_to_planes`.  One span ``planes.join``."""
+    with profiling.span("planes.join", bytes=sum(p.nbytes for p in planes)):
+        out, i = [], 0
+        for dtype, container in specs:
+            if container.itemsize == 4:
+                c = planes[i].view(container)
+                i += 1
+            elif container.itemsize == 8:
+                c = _join_key_word_planes(planes[i:i + 2],
+                                          torch.int64).view(container)
+                i += 2
+            else:
+                c = planes[i].to(container)
+                if dtype.is_floating_point:
+                    c = c.view(dtype)
+                i += 1
+            out.append(dtypes.from_container(c, dtype))
+        return tuple(out)

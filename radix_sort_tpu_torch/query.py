@@ -28,6 +28,13 @@ from .ops import sort as sort_ops
 from .ops import topk as topk_ops
 from .ops import window as win_ops
 from .table import Table
+from .utils import profiling
+
+# the span of each step kind, named once (a span that is off allocates
+# nothing)
+_STEP_SPANS = {step: "query." + step for step in (
+    "filter", "filter_mask", "select", "with_column", "group_by", "join",
+    "distinct", "top_k", "limit", "window", "sort_by")}
 
 
 def _sort_table(table: Table, key: str, descending: bool = False,
@@ -131,50 +138,58 @@ class Query:
 
     # ---- execution --------------------------------------------------------
     def collect(self) -> Table:
+        """Run the chain: one span ``query``, and inside it one span
+        ``query.<step>`` a step (``profiling.span``)."""
         cfg = self._config
         t = self._table
-        for step, args in self._steps:
-            if step == "filter":
-                col, op, value = args
-                t = filt_ops.filter_expr(t, col, op, value, config=cfg)
-            elif step == "filter_mask":
-                (fn,) = args
-                t = filt_ops.filter_table(t, fn(t), config=cfg)
-            elif step == "select":
-                (cols,) = args
-                t = t.select(cols)
-            elif step == "with_column":
-                name, fn = args
-                t = t.with_columns(**{name: fn(t)})
-            elif step == "group_by":
-                key, aggs = args
-                t = agg_ops.hash_aggregate(t, key, aggs, config=cfg)
-            elif step == "distinct":
-                (col,) = args
-                t = agg_ops.distinct(t, col, config=cfg)
-            elif step == "top_k":
-                col, k, largest = args
-                t = topk_ops.topk_table(t, col, k, largest=largest,
-                                        config=cfg)
-            elif step == "limit":
-                (n,) = args
-                t = t.head(n)
-            elif step == "join":
-                other, on, max_dup, suffixes = args
-                t, stats = join_ops.hash_join(
-                    t, other, on, max_duplicates=max_dup,
-                    suffixes=suffixes, config=cfg)
-                self._stats["join"] = stats
-            elif step == "window":
-                partition, order, specs = args
-                t = win_ops.table_window(t, partition, order, specs,
-                                         config=cfg)
-            elif step == "sort_by":
-                key, desc = args
-                t = _sort_table(t, key, desc, config=cfg)
-            else:  # pragma: no cover
-                raise ValueError(step)
+        with profiling.span("query", rows=t.capacity,
+                            steps=len(self._steps)):
+            for step, args in self._steps:
+                with profiling.span(_STEP_SPANS[step], rows=t.capacity):
+                    t = self._run_step(t, step, args, cfg)
         return t
+
+    def _run_step(self, t: Table, step: str, args, cfg) -> Table:
+        if step == "filter":
+            col, op, value = args
+            return filt_ops.filter_expr(t, col, op, value, config=cfg)
+        if step == "filter_mask":
+            (fn,) = args
+            return filt_ops.filter_table(t, fn(t), config=cfg)
+        if step == "select":
+            (cols,) = args
+            return t.select(cols)
+        if step == "with_column":
+            name, fn = args
+            return t.with_columns(**{name: fn(t)})
+        if step == "group_by":
+            key, aggs = args
+            return agg_ops.hash_aggregate(t, key, aggs, config=cfg)
+        if step == "distinct":
+            (col,) = args
+            return agg_ops.distinct(t, col, config=cfg)
+        if step == "top_k":
+            col, k, largest = args
+            return topk_ops.topk_table(t, col, k, largest=largest,
+                                       config=cfg)
+        if step == "limit":
+            (n,) = args
+            return t.head(n)
+        if step == "join":
+            other, on, max_dup, suffixes = args
+            t, stats = join_ops.hash_join(
+                t, other, on, max_duplicates=max_dup, suffixes=suffixes,
+                config=cfg)
+            self._stats["join"] = stats
+            return t
+        if step == "window":
+            partition, order, specs = args
+            return win_ops.table_window(t, partition, order, specs,
+                                        config=cfg)
+        if step == "sort_by":
+            key, desc = args
+            return _sort_table(t, key, desc, config=cfg)
+        raise ValueError(step)  # pragma: no cover
 
     @property
     def last_stats(self):

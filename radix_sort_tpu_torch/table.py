@@ -17,6 +17,7 @@ import torch
 
 from . import dtypes
 from .status import EngineError, OperationStatus
+from .utils import profiling
 
 
 class Table:
@@ -94,9 +95,14 @@ class Table:
                     for k, v in columns.items()}, num_rows)
 
     def to_numpy(self) -> dict:
-        n = int(self.num_rows)
-        return {k: dtypes.tensor_to_numpy(v[:n])
-                for k, v in self.columns.items()}
+        """The real rows of every column as numpy arrays: one span
+        ``to_host``, and inside it ``to_host.wait`` around the one read of
+        ``num_rows``, which waits for the work that makes the table."""
+        with profiling.span("to_host", rows=self._capacity):
+            with profiling.span("to_host.wait"):
+                n = int(self.num_rows)
+            return {k: dtypes.tensor_to_numpy(v[:n])
+                    for k, v in self.columns.items()}
 
     def __repr__(self):
         cols = ", ".join(f"{k}:{v.dtype}"

@@ -6,6 +6,7 @@ harness's."""
 
 import dataclasses
 import io
+import json
 import os
 import shutil
 import subprocess
@@ -237,8 +238,27 @@ def test_profiling_on_the_cpu(tmp_path):
         jb.sort_min_bytes(1 << 20, np.uint64, 8, 4)
     with profiling.trace(str(tmp_path)) as prof:
         torch.arange(1000).sum()
+        with profiling.span("outer", rows=1000):
+            with profiling.span("inner"):
+                torch.arange(1000).sum()
     assert prof.key_averages()
-    assert any(tmp_path.iterdir())
+    # the spans sit in the profiler's own trace file, on its time base:
+    # each over the ops it ran, and taken (none left), spans off again
+    (path,) = tmp_path.glob("*.pt.trace.json")
+    rows = json.loads(path.read_text())["traceEvents"]
+    spans = {r["name"]: r for r in rows if r.get("cat") == "span"}
+    assert set(spans) == {"outer", "inner"}
+    assert spans["outer"]["args"]["rows"] == 1000
+    assert spans["inner"]["args"]["parent"] == spans["outer"]["args"]["id"]
+    out = spans["outer"]
+    lo, hi = out["ts"], out["ts"] + out["dur"]
+    sums = [(r["ts"], r["ts"] + r["dur"]) for r in rows
+            if r.get("name") == "aten::sum"]
+    before = [a for a, b in sums if b <= lo]
+    inside = [a for a, b in sums if lo <= a and b <= hi]
+    assert before and inside and len(before) + len(inside) == len(sums)
+    assert profiling.take_spans() == []
+    assert profiling.span("after") is profiling.span("after2")
 
 
 # -------------------------------------------------------- native baseline

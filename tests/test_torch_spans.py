@@ -1,0 +1,255 @@
+"""The port's spans (``utils/profiling.py``): off by default, where a span
+is one shared no-op that reads no clock; on, the names, parents and call
+ids of a query and of a sort; and, on a card, the spans on the clock of
+the profiler's device rows (the test marked ``cuda``)."""
+
+import json
+import time
+
+import numpy as np
+import pytest
+import torch
+
+import radix_sort_tpu_torch as rtt
+from radix_sort_tpu_torch.utils import profiling
+
+
+@pytest.fixture
+def spans_off():
+    """Spans off and none kept, before and after the test."""
+    profiling.disable()
+    profiling.take_spans()
+    yield
+    profiling.disable()
+    profiling.take_spans()
+
+
+@pytest.fixture
+def clock_reads(monkeypatch):
+    """The recorder's clock, counting its reads."""
+    reads = [0]
+    real = profiling._now
+
+    def now():
+        reads[0] += 1
+        return real()
+
+    monkeypatch.setattr(profiling, "_now", now)
+    return reads
+
+
+def _q1_table(n=3000, seed=5):
+    g = torch.Generator().manual_seed(seed)
+
+    def ints(lo, hi, dtype):
+        return torch.randint(lo, hi, (n,), generator=g, dtype=dtype)
+
+    return rtt.Table({
+        "l_quantity": ints(100, 5100, torch.int64),
+        "l_extendedprice": ints(90000, 10500000, torch.int64),
+        "l_discount": ints(0, 11, torch.int64),
+        "l_tax": ints(0, 9, torch.int64),
+        "l_returnflag": ints(0, 3, torch.uint8),
+        "l_linestatus": ints(0, 2, torch.uint8),
+        "l_shipdate": ints(8000, 10600, torch.int32)})
+
+
+def _q1(table):
+    """TPC-H Q1's shape: a filter, three derived columns, a group-by with
+    sums, means and a count, a sort of the groups, the result to the
+    host."""
+    q = (rtt.Query(table)
+         .filter("l_shipdate", "le", 10471)
+         .with_column("disc_price",
+                      lambda t: t["l_extendedprice"] * (100 - t["l_discount"]))
+         .with_column("charge", lambda t: t["disc_price"] * (100 + t["l_tax"]))
+         .with_column("grp", lambda t: t["l_returnflag"].to(torch.int16) * 256
+                      + t["l_linestatus"].to(torch.int16))
+         .group_by("grp", sum_qty=("sum", "l_quantity"),
+                   sum_charge=("sum", "charge"),
+                   avg_disc=("mean", "l_discount"), n=("count", None))
+         .sort_by("grp"))
+    return q.collect().to_numpy()
+
+
+def _sort_kv_i64():
+    g = torch.Generator().manual_seed(7)
+    keys = torch.randint(0, 2**31 - 1, (2000,), generator=g,
+                         dtype=torch.int32)
+    vals = torch.randint(-2**62, 2**62, (2000,), generator=g,
+                         dtype=torch.int64)
+    return rtt.sort_kv(keys, vals)
+
+
+def test_spans_off_record_nothing_and_read_no_clock(spans_off, clock_reads):
+    off = profiling.span("query", rows=1)
+    assert off is profiling.span("sort_kv") and not isinstance(
+        off, profiling._Open)
+    with off:
+        pass
+    _q1(_q1_table())
+    _sort_kv_i64()
+    rtt.argsort(torch.arange(100, 0, -1, dtype=torch.int32))
+    assert clock_reads[0] == 0
+    assert profiling.take_spans() == []
+
+
+def _by_id(spans):
+    return {s.id: s for s in spans}
+
+
+def _check_nesting(spans):
+    """Each parent is recorded, opened before its child and closed after
+    it, and shares its call id; an outermost span's call id is its own."""
+    by = _by_id(spans)
+    roots = [s for s in spans if s.parent is None]
+    assert len({s.call for s in roots}) == len(roots)
+    for s in spans:
+        assert s.start_ns <= s.end_ns
+        if s.parent is None:
+            continue
+        p = by[s.parent]
+        assert p.id < s.id and p.call == s.call
+        assert p.start_ns <= s.start_ns and s.end_ns <= p.end_ns
+
+
+def _ancestors(s, by):
+    out = []
+    while s.parent is not None:
+        s = by[s.parent]
+        out.append(s.name)
+    return out
+
+
+def test_query_spans_name_each_step(spans_off, clock_reads):
+    table = _q1_table()
+    profiling.enable()
+    got = _q1(table)
+    profiling.disable()
+    spans = profiling.take_spans()
+    assert clock_reads[0] == 2 * len(spans) > 0
+    _check_nesting(spans)
+    by = _by_id(spans)
+    roots = [s for s in spans if s.parent is None]
+    assert [s.name for s in roots] == ["query", "to_host"]
+    query, to_host = roots
+    assert query.attrs == {"rows": 3000, "steps": 6}
+    steps = [s.name for s in spans if s.parent == query.id]
+    assert steps == ["query.filter"] + ["query.with_column"] * 3 + [
+        "query.group_by", "query.sort_by"]
+    assert [s.name for s in spans if s.parent == to_host.id] == [
+        "to_host.wait"]
+    assert {s.call for s in spans} == {query.call, to_host.call}
+    # every sort and word-plane copy lies in the step that made it
+    inner = [s for s in spans
+             if s.name in ("radix.sort_passes", "planes.split",
+                           "planes.join")]
+    assert {s.name for s in inner} == {"radix.sort_passes", "planes.split",
+                                       "planes.join"}
+    for s in inner:
+        step = [a for a in _ancestors(s, by) if a.startswith("query.")]
+        assert step and step[0] in ("query.filter", "query.group_by",
+                                    "query.sort_by"), (s, step)
+    names = {s.name for s in spans}
+    assert names == {"query", "query.filter", "query.with_column",
+                     "query.group_by", "query.sort_by", "radix.sort_passes",
+                     "planes.split", "planes.join", "to_host",
+                     "to_host.wait"}
+    # the spans change nothing of the answer
+    np.testing.assert_array_equal(got["sum_qty"], _q1(table)["sum_qty"])
+
+
+def test_sort_spans_and_attributes(spans_off):
+    profiling.enable()
+    _sort_kv_i64()
+    rtt.argsort(torch.arange(100, 0, -1, dtype=torch.int32))
+    profiling.disable()
+    spans = profiling.take_spans()
+    _check_nesting(spans)
+    by = _by_id(spans)
+    got = [(s.name, by[s.parent].name if s.parent is not None else None)
+           for s in spans]
+    kv = [("sort_kv", None),
+          ("planes.split", "sort_kv"),       # the payloads into planes
+          ("planes.split", "planes.split"),  # the int64 one's two words
+          ("planes.split", "sort_kv"),       # the key's word plane
+          ("radix.sort_passes", "sort_kv"),
+          ("planes.join", "sort_kv"),        # the key back
+          ("planes.join", "sort_kv"),        # the payloads back
+          ("planes.join", "planes.join")]    # the int64 one's two words
+    arg = [("argsort", None), ("sort_kv", "argsort"),
+           ("planes.split", "sort_kv"), ("planes.split", "sort_kv"),
+           ("radix.sort_passes", "sort_kv"), ("planes.join", "sort_kv"),
+           ("planes.join", "sort_kv")]
+    assert got == kv + arg
+    assert spans[0].attrs == {"rows": 2000}
+    assert spans[1].attrs == {"bytes": 2000 * 8}
+    assert spans[4].attrs == {"planes": 2}
+    assert spans[0].call != spans[len(kv)].call
+
+
+def test_a_span_that_raises_still_closes(spans_off):
+    profiling.enable()
+    with pytest.raises(rtt.EngineError):
+        rtt.sort_kv(torch.arange(10, dtype=torch.int32),
+                    torch.arange(9, dtype=torch.int32))
+    with pytest.raises(RuntimeError):
+        with profiling.span("outer"):
+            with profiling.span("inner", rows=3):
+                raise RuntimeError("in the span")
+    with profiling.span("after"):
+        pass
+    profiling.disable()
+    spans = profiling.take_spans()
+    assert [(s.name, s.parent) for s in spans] == [
+        ("sort_kv", None), ("outer", None), ("inner", spans[1].id),
+        ("after", None)]
+    _check_nesting(spans)
+    assert len({s.call for s in spans}) == 3
+    assert profiling.take_spans() == []
+
+
+@pytest.mark.cuda
+def test_spans_share_the_device_trace_clock(spans_off, tmp_path):
+    """A kernel, then a span of 2 ms of host work that ends by launching
+    a second kernel: in the trace that ``profiling.trace`` writes, the
+    device's idle gap between the two kernels starts and ends within 50
+    us of the span, and the host records of the two launches lie before
+    and inside it.  A first kernel and a synchronise come before, so that
+    the profiler's own set-up (its first launch asks for its buffers, ~2
+    ms on an H100) lies outside the gap; the host spins rather than
+    sleeps, so that it is awake at the span's end."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    x = torch.zeros(1024, device="cuda")
+    x.add_(1)
+    torch.cuda.synchronize()
+    with profiling.trace(str(tmp_path)):
+        x.add_(1)
+        torch.cuda.synchronize()
+        x.add_(1)
+        with profiling.span("host.work"):
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < 0.002:
+                pass
+            x.add_(1)
+        torch.cuda.synchronize()
+    (path,) = tmp_path.glob("*.pt.trace.json")
+    rows = json.loads(path.read_text())["traceEvents"]
+
+    def named(cat, name=""):
+        return sorted((r for r in rows if r.get("cat") == cat
+                       and r["name"].startswith(name)),
+                      key=lambda r: r["ts"])
+
+    kernels = named("kernel")
+    launches = named("cuda_runtime", "cudaLaunchKernel")
+    (sp,) = named("span")
+    assert sp["name"] == "host.work" and len(kernels) == 3, kernels
+    assert len(launches) == 3, launches
+    end = sp["ts"] + sp["dur"]
+    assert launches[1]["ts"] <= sp["ts"] <= launches[2]["ts"] <= end
+    gap0 = kernels[1]["ts"] + kernels[1]["dur"]
+    gap1 = kernels[2]["ts"]
+    assert abs(gap0 - sp["ts"]) <= 50, (gap0, sp)
+    assert abs(gap1 - end) <= 50, (gap1, sp)
