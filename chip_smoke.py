@@ -9,8 +9,10 @@ kernel bit-exact against its plain torch version at the shapes the main
 path gives it (the onesweep pass in look-back mode at u32 KV 2^27 on
 RandomDistributed and Zeros, u64 KV 2^27, u8 and f16 KV 2^27 on the
 caller's narrow key planes with their base-table launch beyond 16 planes
-and a view off a 4-byte boundary, a ragged n, 17 planes and the
-partition's pass; the sort's plan at u32 KV 2^27, launch by launch against
+and a view off a 4-byte boundary, a ragged n, 17 planes, the
+partition's pass, and the pass kernel's wide instance with 8-byte planes
+(a u32 key and an int64 payload at 2^27, and Q1's mixed set of one key,
+seven 8-byte and four 4-byte planes at a ragged n); the sort's plan at u32 KV 2^27, launch by launch against
 the plain plan: a filled pass, a filled pass before a running one, and a
 sort that runs no pass, whose last launch copies its input into new
 storage; ``[enqueue]``: ``sort_passes``, a whole sort or partition in
@@ -88,7 +90,8 @@ launch counters set to 0 just before it and read just after:
     numpy oracle from ``np.lexsort``, 2^26 by checks on the card; the
     segmented scans' share of the window's device time;
   - ``[sort_by]``: three keys (u32, int16 descending, f32) over 2^26 rows
-    against ``np.lexsort``;
+    against ``np.lexsort``, with int64 and float64 columns riding as
+    8-byte planes (the query path must launch the wide instance);
   - ``[segment]``: ``hash_aggregate(method="segment")`` against
     ``method="scan"`` on config 3's 2^26 rows;
   - ``[io]``: ``save_table`` / ``load_table`` of 2^24 rows bit for bit and
@@ -135,7 +138,10 @@ Every phase raises on a failure, so the exit code is non-zero and the last
 line is not printed.  The last line is the JSON object
 ``{"ok": true, "device": {...}}``; the line before it lists each kernel (and
 ``pass_histograms`` and ``onesweep_pass`` again with 8- and 16-bit key
-planes, timed on u8 and f16 KV at 2^27, their launches counted apart) with
+planes, timed on u8 and f16 KV at 2^27, their launches counted apart, and
+``onesweep_pass_wide``: the pass with an 8-byte plane, timed on a u32 key
+and an int64 payload at 2^27, its launches those of the wide instance in
+either mode) with
 its launch count summed over the five paths, its device time beside the plain
 version's (``ms``, ``plain_ms``: CUDA events around 50 back-to-back calls,
 divided by 50), its bound (``bound_ms``: the bytes it must move at 3.35
@@ -158,6 +164,7 @@ import numpy as np
 import torch
 
 RADIX_CU = "radix_sort_tpu_torch/csrc/radix.cu"
+PASS_CUH = "radix_sort_tpu_torch/csrc/radix_pass.cuh"  # rank_scatter's kernel
 MERGE_CU = "radix_sort_tpu_torch/csrc/merge.cu"
 K3_K4 = ("radix_sort_tpu/ops/pallas_radix.py:263; "
          "radix_sort_tpu/ops/pallas_stream.py:427")
@@ -173,13 +180,17 @@ REPLACES = {
     "pass_histograms_16bit": "radix_sort_tpu/ops/pallas_radix.py:140",
     "onesweep_pass_8bit": K3_K4,
     "onesweep_pass_16bit": K3_K4,
+    # the same kernel's wide instance: some plane of 8 bytes (launches of
+    # it in look-back and base-table mode; in the totals of both too)
+    "onesweep_pass_wide": K3_K4,
     "tile_sort": "radix_sort_tpu/ops/pallas_merge.py:265",
     "merge_level": "radix_sort_tpu/ops/pallas_merge.py:283",
 }
-SOURCES = {k: MERGE_CU if k in ("tile_sort", "merge_level") else RADIX_CU
-           for k in REPLACES}
+SOURCES = {k: MERGE_CU if k in ("tile_sort", "merge_level") else
+           PASS_CUH if REPLACES[k] == K3_K4 else RADIX_CU for k in REPLACES}
 NARROW_KERNELS = ("pass_histograms_8bit", "pass_histograms_16bit",
                   "onesweep_pass_8bit", "onesweep_pass_16bit")
+WIDE_KERNELS = ("onesweep_pass_wide",)
 REPS = 5
 HBM_BYTES_PER_MS = 3.35e9  # H100 SXM device memory, 3.35 TB/s
 
@@ -307,6 +318,7 @@ def launch_counts():
 
     own = {**cuda_radix.launch_counts(), **cuda_radix.narrow_launch_counts(),
            **cuda_merge.launch_counts()}
+    own["onesweep_pass_wide"] = own.pop("wide_launches")
     return {k: v + CHILD_LAUNCHES.get(k, 0) for k, v in own.items()}
 
 
@@ -625,7 +637,8 @@ def phase_onesweep(dev, rt, cr, note, res):
     KV pass at 2^27 (RandomDistributed and Zeros), a u64 KV pass, the
     passes of u8 and f16 KV sorts on the caller's narrow key planes (and
     their base-table launches beyond 16 planes), a ragged n, 17 planes,
-    and the partition's pass (digit plane not moved)."""
+    the partition's pass (digit plane not moved), and the pass with 8-byte
+    planes (phase_wide_pass)."""
     n = 1 << 27
     tile = rt.DEFAULT_CONFIG.tile_elems  # the sort's tile
     iota = torch.arange(n, dtype=torch.int32, device=dev)
@@ -708,7 +721,59 @@ def phase_onesweep(dev, rt, cr, note, res):
     ids = x & 255
     check("partition pass n=2^27-777 (ids not moved, 2 planes)", ids,
           (iota[:m], x))
-    del x, ids, iota
+    del x, ids
+    phase_wide_pass(dev, rt, cr, note, res, check, iota)
+    del iota
+
+
+def phase_wide_pass(dev, rt, cr, note, res, check, iota):
+    """The pass kernel's wide instance (some plane 8 bytes an element)
+    against the plain version: a u32 key and an int64 payload at 2^27,
+    timed beside its bound (24 B a row: each plane read and written once)
+    and beside the same payload as two int32 word planes through the
+    4-byte instance; then Q1's group-by compaction's planes (an int32 key,
+    seven int64 columns, four int32 counts) at a ragged n on the 2^27 - 777
+    tail, in look-back and base-table mode."""
+    n = iota.numel()
+    tile = rt.DEFAULT_CONFIG.tile_elems
+    gen = rt.datasets_device.generate
+    keys = gen("RandomDistributed", np.uint32, n, seed=6,
+               device=dev).view(torch.int32)
+    pay = gen("RandomDistributed", np.int64, n, seed=7, device=dev)
+    counts = check("wide: u32 key + int64 payload n=2^27 (pass 1, shift 8)",
+                   keys, (keys, pay), shift=8)
+    nbytes = 24 * n + 4 * 256
+    note("onesweep_pass_wide", 0, timings(
+        lambda: cr.onesweep_pass(keys, (keys, pay), counts, 256, tile, 8),
+        lambda: cr.onesweep_pass_plain(keys, (keys, pay), 256, tile, 8)),
+         nbytes=nbytes)
+    words = tuple(pay.view(torch.int32).view(n, 2)[:, w].contiguous()
+                  for w in range(2))
+    split = device_ms(lambda: cr.onesweep_pass(keys, (keys,) + words, counts,
+                                               256, tile, 8))
+    r = res["onesweep_pass_wide"]
+    print(f"[kernels] onesweep_pass_wide u32 key + int64 payload n=2^27: "
+          f"device {r['ms']:.5f} ms, bound {r['bound_ms']:.5f} ms, share "
+          f"{r['bound_ms'] / r['ms']:.3f}; as two int32 word planes "
+          f"{split:.5f} ms (share {r['bound_ms'] / split:.3f}); plain "
+          f"{r['plain_ms']:.3f} ms", flush=True)
+    del words
+    m = n - 777
+    k = keys[:m] & 0xFFFF  # the int32 key
+    cols = tuple(pay[:m] * (3 + 2 * i) for i in range(7))
+    cnts = tuple(iota[:m] + i for i in range(4))
+    planes = (k,) + cols + cnts
+    check(f"wide: Q1's compaction planes n={m} (int32 key, 7 int64, "
+          f"4 int32; radix 16, shift 4)", k, planes, radix=16, shift=4)
+    base = cr._stitch_block_base(cr.digit_histogram(k, 16, tile, 4))
+    outs, _ = cr.rank_scatter(k, planes, base, 16, tile, 4)
+    want, _ = cr.onesweep_pass_plain(k, planes, 16, tile, 4)
+    err = max(max_abs_err(a, b) for a, b in zip(outs, want))
+    require(err == 0, "rank_scatter wide (base-table mode) disagrees")
+    note("onesweep_pass_wide", err)
+    print(f"[kernels] rank_scatter wide: Q1's compaction planes n={m} in "
+          f"base-table mode: bit-exact", flush=True)
+    del keys, pay, k, cols, cnts, planes, base, outs, want
 
 
 def phase_plan(dev, cr, tile: int, iota, note):
@@ -1771,14 +1836,21 @@ def phase_window(dev, rt):
 
 def phase_sort_by(dev, rt):
     """Query.sort_by on three keys (u32 ascending, int16 descending, f32
-    ascending) over 2^26 rows with padding, against np.lexsort."""
+    ascending) over 2^26 rows with padding, against np.lexsort; an int64
+    and a float64 column (NaN bits and -0.0 among its values) ride as
+    8-byte planes and come back bit for bit."""
     n = 1 << 26
     m = n - PADDING
     rng = np.random.default_rng(12)
+    f64 = rng.standard_normal(n)
+    f64[::97] = -0.0
+    f64.view(np.int64)[::101] = 0x7FF8_0000_DEAD_BEEF  # a NaN's payload
     cols = {"a": rng.integers(0, 1 << 10, n).astype(np.uint32),
             "b": rng.integers(-2**15, 2**15, n).astype(np.int16),
             "c": rng.standard_normal(n).astype(np.float32),
-            "row": np.arange(n, dtype=np.int32)}
+            "row": np.arange(n, dtype=np.int32),
+            "w": rng.integers(-2**63, 2**63 - 1, n, dtype=np.int64),
+            "x": f64}
     t = rt.Table.from_numpy(cols, num_rows=m, device=dev)
 
     def run(config=rt.DEFAULT_CONFIG):
@@ -1793,9 +1865,13 @@ def phase_sort_by(dev, rt):
     for k in ("a", "b", "c"):
         require(np.array_equal(out[k], cols[k][:m][order]),
                 f"sort_by: column {k} differs")
+    for k in ("w", "x"):  # bit for bit
+        require(np.array_equal(out[k].view(np.int64),
+                               cols[k][:m][order].view(np.int64)),
+                f"sort_by: 8-byte column {k} differs")
     ms, ms_t = beside_torch_sort(rt, run)
-    print(f"[sort_by] u32 asc, int16 desc, f32 asc over 2^26 rows: "
-          f"validated vs np.lexsort; {ms:.3f} ms ({n / ms / 1e3:.1f} "
+    print(f"[sort_by] u32 asc, int16 desc, f32 asc over 2^26 rows, int64 "
+          f"and float64 riding: validated vs np.lexsort; {ms:.3f} ms ({n / ms / 1e3:.1f} "
           f"Mrows/s), with torch.sort {ms_t:.3f} ms "
           f"({n / ms_t / 1e3:.1f} Mrows/s)", flush=True)
 
@@ -2330,7 +2406,7 @@ def main() -> int:
                                lambda: phase_io(dev, rt),
                                lambda: phase_datasets_device(dev, rt),
                                lambda: phase_examples(dev, rt)),
-                     radix_kernels)
+                     radix_kernels + WIDE_KERNELS)
     # the ranks' launches are in the counts (CHILD_LAUNCHES); phase_dist
     # requires both kernels on every rank
     dist = run_path("dist", (lambda: phase_dist(dev, rt),
@@ -2342,7 +2418,8 @@ def main() -> int:
                                lambda: phase_sweep(dev, rt),
                                lambda: phase_configs12(dev, rt),
                                lambda: phase_scaling(dev, rt)),
-                     tuple(k for k in REPLACES if k not in NARROW_KERNELS))
+                     tuple(k for k in REPLACES
+                           if k not in NARROW_KERNELS + WIDE_KERNELS))
     launches = {k: radix[k] + merge[k] + query[k] + dist[k] + bench[k]
                 for k in REPLACES}
     peak = torch.cuda.max_memory_allocated()

@@ -3,10 +3,10 @@
 ``nvcc`` compiles each source of ``csrc/`` for ``sm_90a``, one process a
 source, all started together, and links the objects into one shared library
 with a plain C interface under ``build/kernels/`` at the root of the
-checkout (git-ignored), named by a hash of the sources and the flags, so an
-edited source builds anew and an unchanged one is reused.  The library
-is loaded with ctypes; every entry point takes device pointers and the CUDA
-stream as ``c_void_p`` and returns ``cudaGetLastError()``.
+checkout (git-ignored), named by a hash of the sources, their headers and
+the flags, so an edited source builds anew and an unchanged one is reused.
+The library is loaded with ctypes; every entry point takes device pointers
+and the CUDA stream as ``c_void_p`` and returns ``cudaGetLastError()``.
 
 Nothing here runs at import time: the CPU tests import every module of the
 package on a machine with no ``nvcc``.
@@ -26,7 +26,8 @@ from .status import EngineError, OperationStatus
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = ("radix.cu", "merge.cu")
+SOURCES = ("radix.cu", "radix_wide.cu", "merge.cu")
+HEADERS = ("radix_pass.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -41,16 +42,16 @@ _SIGNATURES = {
     "rst_digit_histogram": ([_P, _LL, _I, _I, _I, _I, _P, _LL, _LL, _P], _I),
     "rst_exclusive_scan": ([_P, _LL, _P, _P, _LL, _P], _I),
     "rst_rank_scatter": ([_PP, _LL, _I, _I, _I, _I, _I, _I, _P, _PP, _PP,
-                          _PP, _I, _P, _P, _I, _I, _I, _PP, _P], _I),
+                          _PP, _I, _PI, _P, _P, _I, _I, _I, _PP, _P], _I),
     "rst_pass_histograms": ([_P, _I, _P, _I, _LL, _I, _I, _I, _P, _P], _I),
     "rst_onesweep_scratch_bytes": ([_LL, _I, _I], _LL),
     "rst_zero": ([_P, _LL, _P], _I),
     "rst_onesweep_pass": ([_PP, _LL, _I, _I, _I, _I, _I, _I, _P, _P, _LL,
-                           _PP, _PP, _PP, _I, _P, _P, _P, _I, _I, _I, _PP,
-                           _P], _I),
+                           _PP, _PP, _PP, _I, _PI, _P, _P, _P, _I, _I, _I,
+                           _PP, _P], _I),
     "rst_sort_workspace_bytes": ([_LL, _I, _I, _I, _I], _LL),
     "rst_sort_planes": ([_LL, _I, _I, _I, _I, _I, _PP, _I, _I, _PP, _PP,
-                         _PP, _I, _I, _P, _LL, _P, _PI], _I),
+                         _PP, _I, _PI, _I, _P, _LL, _P, _PI], _I),
     "rst_merge_tile": ([], _I),
     "rst_tile_sort": ([_P, _LL, _P, _P], _I),
     "rst_merge_level": ([_P, _LL, _I, _P, _P, _P, _P, _P], _I),
@@ -71,7 +72,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the built library for the current sources and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((_CSRC / name).read_bytes())
     return BUILD_DIR / f"librst_kernels_{h.hexdigest()[:16]}.so"
 

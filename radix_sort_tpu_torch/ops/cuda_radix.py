@@ -13,7 +13,9 @@ it was given:
 Each wrapper carries ``launches``, a plain int that counts the kernel
 launches it made, so a run can show that its path went through the kernel.
 
-Payload planes are int32.  The key (digit) plane of ``pass_histograms``,
+Payload planes are int32, or int64: an 8-byte column's bits as they are,
+moved at 8 bytes an element by the pass kernel's wide instance.  The key
+(digit) plane of ``pass_histograms``,
 ``rank_scatter`` and ``onesweep_pass`` is an int32 word plane (4- and
 8-byte keys travel as word planes, ops/stream.py), whose digit is taken
 from its bits as they are, or the caller's own 1- or 2-byte keys (uint8,
@@ -73,6 +75,8 @@ def _check_plane(x: torch.Tensor, what: str, device=None,
 NARROW_KEY_DTYPES = (torch.uint8, torch.int8, torch.int16, torch.uint16,
                      torch.float16)
 _KEY_PLANE_DTYPES = (torch.int32,) + NARROW_KEY_DTYPES
+# dtypes of a payload plane: an 8-byte one moves as int64 bits
+PLANE_DTYPES = (torch.int32, torch.int64)
 _KINDS = {"u": 0, "i": 1, "f": 2}
 
 
@@ -213,8 +217,8 @@ def rank_scatter_plain(digit_src: torch.Tensor, planes, base: torch.Tensor,
 
 def _check_pass(digit_src: torch.Tensor, planes, radix: int, shift: int,
                 kind: str, what: str):
-    """The planes of one pass: int32 planes, and a narrow digit plane
-    among them only as the key plane itself."""
+    """The planes of one pass: int32 or int64 planes, and a narrow digit
+    plane among them only as the key plane itself."""
     planes = tuple(planes)
     _check_key_plane(digit_src, kind, f"{what} digit plane")
     n = digit_src.numel()
@@ -227,8 +231,9 @@ def _check_pass(digit_src: torch.Tensor, planes, radix: int, shift: int,
                 raise ValueError(f"{what}: a {p.dtype} plane must be the "
                                  f"narrow key plane itself")
         else:
-            _check_plane(p, f"{what} plane", digit_src.device)
-            if narrow and n and p.data_ptr() == digit_src.data_ptr():
+            _check_plane(p, f"{what} plane", digit_src.device, PLANE_DTYPES)
+            if (narrow and n and p.dtype == torch.int32
+                    and p.data_ptr() == digit_src.data_ptr()):
                 raise ValueError(f"{what}: an int32 plane aliases the "
                                  f"narrow key plane")
         if p.numel() != n:
@@ -248,16 +253,36 @@ def _ptrs(tensors):
         *[None if t is None else t.data_ptr() for t in tensors])
 
 
+def _plane_bytes(planes):
+    """The C entries' ``plane_bytes``: a ctypes array of each plane's bytes
+    an element, or None where no plane is 8 bytes (the 4-byte instance)."""
+    sizes = [p.element_size() for p in planes]
+    return (ctypes.c_int * len(sizes))(*sizes) if 8 in sizes else None
+
+
+def _wide(planes) -> int:
+    """The planes of 8 bytes an element."""
+    return sum(p.element_size() == 8 for p in planes)
+
+
+def _wide_groups(planes) -> int:
+    """The launch groups of ``planes`` (``_launch_groups``) that hold an
+    8-byte plane: each launch of one runs the pass kernel's wide instance."""
+    step = _build.max_planes()
+    return sum(_wide(planes[lo:lo + step]) > 0
+               for lo in range(0, len(planes), step))
+
+
 def _launch_groups(planes, outs, tmps=None):
-    """(ins, outs, tmps, count) ctypes arrays for each launch (tmps None
-    where ``tmps`` is): at most rst_max_planes() planes a launch, and one
-    launch with no plane."""
+    """(ins, outs, tmps, count, plane_bytes) ctypes arrays for each launch
+    (tmps None where ``tmps`` is): at most rst_max_planes() planes a
+    launch, and one launch with no plane."""
     step = _build.max_planes()
     for lo in range(0, max(len(planes), 1), step):
         hi = lo + step
         yield (_ptrs(planes[lo:hi]), _ptrs(outs[lo:hi]),
                None if tmps is None else _ptrs(tmps[lo:hi]),
-               min(step, len(planes) - lo))
+               min(step, len(planes) - lo), _plane_bytes(planes[lo:hi]))
 
 
 def rank_scatter(digit_src: torch.Tensor, planes, base: torch.Tensor,
@@ -293,13 +318,14 @@ def rank_scatter(digit_src: torch.Tensor, planes, base: torch.Tensor,
     base_rb = base.T.contiguous()  # digit-major (R, B); free from the stitch
     lib = _build.lib()
     # more planes than one launch takes: further launches re-rank the tile
-    for g, (ins, outp, _, k) in enumerate(_launch_groups(planes, outs)):
+    for g, (ins, outp, _, k, nb) in enumerate(_launch_groups(planes, outs)):
         _build.check(lib.rst_rank_scatter(
             _ptrs((digit_src, None, None)), n, tile, threads, shift, radix,
             *_key_args(digit_src, kind), base_rb.data_ptr(), ins, outp, None,
-            k, dest.data_ptr() if (dest is not None and g == 0) else None,
+            k, nb, dest.data_ptr() if (dest is not None and g == 0) else None,
             *_NO_PLAN, _stream(digit_src)), "rank_scatter")
         rank_scatter.launches += 1
+        onesweep_pass.wide_launches += nb is not None
     return outs, dest
 
 
@@ -473,9 +499,10 @@ def _buffer_sets(planes, outs, tmp):
 def _digit_sets(digit_src: torch.Tensor, planes, sets):
     """The digit plane in IN, OUT and TMP: the key plane's counterparts
     where it is one of ``planes`` (it moves), else ``digit_src`` in all
-    three (a partition's ids)."""
+    three (a partition's ids).  An 8-byte plane is never the key's."""
     for i, p in enumerate(planes):
-        if p.numel() and p.data_ptr() == digit_src.data_ptr():
+        if (p.numel() and p.dtype == digit_src.dtype
+                and p.data_ptr() == digit_src.data_ptr()):
             return tuple(s[i] for s in sets)
     return (digit_src,) * 3
 
@@ -559,8 +586,9 @@ def onesweep_pass(digit_src: torch.Tensor, planes, counts: torch.Tensor,
                   with_dest: bool = False,
                   threads: int = DEFAULT_CONFIG.threads_per_cta,
                   kind: str = "u", plan: PassPlan | None = None):
-    """One stable radix pass as a single launch: the planes move as
-    ``rank_scatter`` moves them, each tile's offsets found by look-back.
+    """One stable radix pass as a single launch: the planes (int32, or
+    int64 moved at 8 bytes) move as ``rank_scatter`` moves them, each
+    tile's offsets found by look-back.
 
     ``counts`` is the (R,) int32 digit total of this pass (a row of
     ``pass_histograms``).  ``scratch`` is a zeroed row of
@@ -629,24 +657,33 @@ def onesweep_pass(digit_src: torch.Tensor, planes, counts: torch.Tensor,
                if len(groups) > 1 else None)
     stream = _stream(digit_src)
     key = _key_args(digit_src, kind)
-    ins, outp, tmpp, k = groups[0]
+    ins, outp, tmpp, k, nb = groups[0]
     _build.check(lib.rst_onesweep_pass(
         digits, n, tile, threads, shift, radix, *key, counts.data_ptr(),
-        scratch.data_ptr(), scratch.nbytes, ins, outp, tmpp, k,
+        scratch.data_ptr(), scratch.nbytes, ins, outp, tmpp, k, nb,
         dest.data_ptr() if dest is not None else None,
         base_rb.data_ptr() if base_rb is not None else None, *plan_args,
         stream), "onesweep_pass")
     _count(onesweep_pass, 8 * digit_src.element_size())
-    for ins, outp, tmpp, k in groups[1:]:
+    onesweep_pass.wide_launches += nb is not None
+    for ins, outp, tmpp, k, nb in groups[1:]:
         _build.check(lib.rst_rank_scatter(
             digits, n, tile, threads, shift, radix, *key, base_rb.data_ptr(),
-            ins, outp, tmpp, k, None, *plan_args, stream), "rank_scatter")
+            ins, outp, tmpp, k, nb, None, *plan_args, stream),
+            "rank_scatter")
         rank_scatter.launches += 1
+        onesweep_pass.wide_launches += nb is not None
     return outs, dest
 
 
 onesweep_pass.launches = 0
 onesweep_pass.narrow_launches = {8: 0, 16: 0}
+# planes of 8 bytes an element that sorts moved on a card, once a sort
+# (sort_passes and sort_passes_plain count them alike)
+onesweep_pass.wide_planes = 0
+# launches of the pass kernel's wide instance (a launch group with an 8-byte
+# plane), in look-back and base-table mode, as enqueued on a card
+onesweep_pass.wide_launches = 0
 
 
 # ------------------------------------------------------ a whole sort, K1-K4
@@ -680,6 +717,7 @@ def _sort_sets(key_planes, passes, planes, radix: int, kind: str, digit):
     _check_key_plane(key, kind, "sort key plane")
     if digit is not None and key.dtype != torch.int32:
         raise ValueError("a digit plane that does not move is int32")
+    moving = len(keys) if digit is None else 0  # ins[:moving]: key planes
     width = 8 * key.element_size()
     if width < 32 and len(keys) > 1:
         raise ValueError("a narrow key plane is the sort's only key plane")
@@ -689,10 +727,12 @@ def _sort_sets(key_planes, passes, planes, radix: int, kind: str, digit):
                          f"planes of {bits}-bit digits")
     n, dev = key.numel(), key.device
     narrow = width < 32 and n > 0
-    for i, p in enumerate(ins):  # ins[:len(keys)] are the keys that move
+    for i, p in enumerate(ins):
         if i or digit is not None:
-            _check_plane(p, "sort plane", dev)
-            if narrow and p.data_ptr() == key.data_ptr():
+            _check_plane(p, "sort plane", dev,
+                         PLANE_DTYPES if i >= moving else (torch.int32,))
+            if (narrow and p.dtype == torch.int32
+                    and p.data_ptr() == key.data_ptr()):
                 raise ValueError("an int32 plane aliases the narrow key "
                                  "plane")
         if p.numel() != n:
@@ -712,6 +752,8 @@ def sort_passes_plain(key_planes, passes, planes, radix: int, tile: int,
     torch on the card too."""
     keys, ins, passes, _ = _sort_sets(key_planes, passes, planes, radix,
                                       kind, digit)
+    if _on_cuda(keys[0]) and keys[0].numel() and not torch_only:
+        onesweep_pass.wide_planes += _wide(ins)
     return _per_pass(keys, ins, passes, radix, tile, threads, kind,
                      torch_only)
 
@@ -754,7 +796,8 @@ def sort_passes(key_planes, passes, planes, radix: int, tile: int,
     """A stable LSD sort of planes by the digits of its key planes: key
     plane w (one, or a 64-bit key's lo and hi words) carries passes[w]
     digits, pass j's at shift j * log2(radix), and moves with ``planes``
-    (int32).  A narrow key plane of ``kind`` gives its image's digits.
+    (int32, or int64: an 8-byte column moved at its own width).  A narrow
+    key plane of ``kind`` gives its image's digits.
     ``digit`` (int32 ids) in place of key planes is a partition's: its one
     pass count of digits orders ``planes`` and it does not move.
 
@@ -765,15 +808,19 @@ def sort_passes(key_planes, passes, planes, radix: int, tile: int,
     On a card: one call of ``rst_sort_planes``, which enqueues every launch
     of the sort with no host read, and the allocations (OUT, TMP where P >
     1, one workspace); the launch counters advance as the per-pass
-    launches advance them.  On the CPU: ``sort_passes_plain``.  One span
-    ``radix.sort_passes``."""
-    with profiling.span("radix.sort_passes", planes=len(planes)):
+    launches advance them, and ``onesweep_pass.wide_planes`` by the 8-byte
+    planes.  On the CPU: ``sort_passes_plain``.  One span
+    ``radix.sort_passes`` (attributes ``planes``, and ``wide``: the 8-byte
+    planes)."""
+    planes = tuple(planes)
+    wide = _wide(planes)
+    with profiling.span("radix.sort_passes", planes=len(planes), wide=wide):
         return _sort_passes(key_planes, passes, planes, radix, tile, threads,
-                            kind, digit)
+                            kind, digit, wide)
 
 
 def _sort_passes(key_planes, passes, planes, radix, tile, threads, kind,
-                 digit):
+                 digit, wide):
     keys, ins, passes, moves = _sort_sets(key_planes, passes, planes, radix,
                                           kind, digit)
     key = keys[0]
@@ -783,6 +830,7 @@ def _sort_passes(key_planes, passes, planes, radix, tile, threads, kind,
     n, dev = key.numel(), key.device
     if n == 0:
         return _empty_sort(ins, passes, radix, dev)
+    onesweep_pass.wide_planes += wide
     P = sum(passes)
     lib = _build.lib()
     nbytes = lib.rst_sort_workspace_bytes(n, tile, radix, P, len(ins))
@@ -795,13 +843,16 @@ def _sort_passes(key_planes, passes, planes, radix, tile, threads, kind,
         n, radix, tile, threads, *_key_args(key, kind),
         _ptrs(keys + (None,) * (2 - len(keys))), passes[0],
         passes[1] if len(passes) > 1 else 0, _ptrs(ins), _ptrs(outs),
-        None if tmp is None else _ptrs(tmp), len(ins), int(moves),
-        ws.data_ptr(), nbytes, _stream(key), launches), "sort_passes")
+        None if tmp is None else _ptrs(tmp), len(ins),
+        _plane_bytes(ins) if wide else None, int(moves), ws.data_ptr(),
+        nbytes, _stream(key), launches), "sort_passes")
     width = 8 * key.element_size()
     hist, looked, based = launches
     _count(pass_histograms, width, hist)
     _count(onesweep_pass, width, looked)
     rank_scatter.launches += based
+    # every launch group once a pass: the look-back one, then base-table
+    onesweep_pass.wide_launches += looked * _wide_groups(ins)
     return outs, ws[:P * radix].view(P, radix)
 
 
@@ -811,9 +862,9 @@ def sort_biased(keys_bits: torch.Tensor, payloads,
     """Stable LSD radix sort of sortable key bits (int32/int64 containers,
     unsigned order; dtypes.to_sortable) with a tuple of payload tensors that
     ride the same permutation: one pass_histograms launch, then one
-    onesweep_pass a pass that one digit does not fill, over int32 planes
-    (ops/stream.py); ``total_bits`` (default: the container's width) sets
-    the passes."""
+    onesweep_pass a pass that one digit does not fill, over int32 key word
+    planes and payload planes of 4 or 8 bytes (ops/stream.py);
+    ``total_bits`` (default: the container's width) sets the passes."""
     from . import stream
 
     planes, specs = stream.payloads_to_planes(payloads)
@@ -853,8 +904,13 @@ def _count(fn, key_bits: int, launches: int = 1) -> None:
 def launch_counts() -> dict:
     """Launch counters of the radix kernels, by wrapper name
     (``rank_scatter`` counts base-table launches, ``onesweep_pass``
-    look-back launches)."""
-    return {f.__name__: f.launches for f in _COUNTED}
+    look-back launches), ``wide_planes``: the 8-byte planes the sorts
+    moved, once a sort, and ``wide_launches``: the launches of the pass
+    kernel's wide instance (counted in ``onesweep_pass`` and
+    ``rank_scatter`` too)."""
+    return {**{f.__name__: f.launches for f in _COUNTED},
+            "wide_planes": onesweep_pass.wide_planes,
+            "wide_launches": onesweep_pass.wide_launches}
 
 
 def narrow_launch_counts() -> dict:
@@ -872,3 +928,5 @@ def reset_launch_counts() -> None:
     for f in (pass_histograms, onesweep_pass):
         for bits in f.narrow_launches:
             f.narrow_launches[bits] = 0
+    onesweep_pass.wide_planes = 0
+    onesweep_pass.wide_launches = 0

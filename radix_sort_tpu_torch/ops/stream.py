@@ -1,12 +1,16 @@
 """Multi-plane stable reorder: the radix sort and the one-pass partition.
 
-Port of ``radix_sort_tpu/ops/pallas_stream.py``.  Keys and payloads travel
-as int32 word planes: a 4-byte column is one plane, an 8-byte column a
-(lo, hi) pair (``x.view(torch.int32).reshape(n, 2)``), a narrower payload
-column is widened to one plane.  A 1- or 2-byte key of the sort entry
-points is the exception: it stays the caller's bits at its own width, and
-the kernels take its digits from its sortable image
-(``sort_narrow_planes``).  A sort is
+Port of ``radix_sort_tpu/ops/pallas_stream.py``.  Keys travel as int32
+word planes: a 4-byte key is one plane, an 8-byte key a (lo, hi) pair
+(``x.view(torch.int32).reshape(n, 2)``).  A 1- or 2-byte key of the sort
+entry points is the exception: it stays the caller's bits at its own
+width, and the kernels take its digits from its sortable image
+(``sort_narrow_planes``).  A payload column travels at its own width where
+it is 4 or 8 bytes, as a view of its bits (int32, or int64 that the pass
+kernel moves 8 bytes at a time), and a narrower one is widened to one
+int32 plane.  The distributed layer's exchange packs int32 word planes for
+its collectives, so it asks for 8-byte payloads as (lo, hi) word pairs
+(``payloads_to_planes(..., words=True)``).  A sort is
 one ``pass_histograms`` launch over the key word planes and one
 ``onesweep_pass`` launch for every pass, moving every plane by the digit
 of one of them, all enqueued on a card by one call into the kernel
@@ -98,8 +102,8 @@ def _join_key_word_planes(word_planes, dtype: torch.dtype) -> torch.Tensor:
 def sort_planes(keys_bits: torch.Tensor, payload_planes=(), radix: int = 256,
                 tile: int = _TILE, threads: int = _THREADS,
                 total_bits: int | None = None):
-    """Stable LSD sort of sortable key bits plus any number of int32
-    payload planes, all riding the same permutation every pass.
+    """Stable LSD sort of sortable key bits plus any number of int32 or
+    int64 payload planes, all riding the same permutation every pass.
 
     ``total_bits`` caps the sorted key width when the caller knows every
     key is below 2**total_bits: fewer passes run, not just skipped.
@@ -124,11 +128,11 @@ def sort_narrow_planes(keys: torch.Tensor, kind: str, payload_planes=(),
                        threads: int = _THREADS):
     """Stable LSD sort of 1- or 2-byte keys given as the caller's own bits
     (``cuda_radix.NARROW_KEY_DTYPES``) of ``kind`` ("u", "i", "f"), plus
-    int32 payload planes: one pass_histograms launch over the narrow key
-    plane and one onesweep_pass for each pass (one a byte at radix 256),
-    each a no-op where one digit fills it.  The kernels take the digits
-    from the keys' sortable image and move their bits, so the sort ends
-    with the caller's key bits in order and nothing to undo.
+    int32 or int64 payload planes: one pass_histograms launch over the
+    narrow key plane and one onesweep_pass for each pass (one a byte at
+    radix 256), each a no-op where one digit fills it.  The kernels take
+    the digits from the keys' sortable image and move their bits, so the
+    sort ends with the caller's key bits in order and nothing to undo.
     Returns (keys_out, payload_planes_out), new tensors."""
     n = keys.shape[0]
     payload_planes = tuple(payload_planes)
@@ -143,8 +147,8 @@ def sort_narrow_planes(keys: torch.Tensor, kind: str, payload_planes=(),
 
 def partition_planes(bucket_ids: torch.Tensor, planes_i32, num_buckets: int,
                      tile: int = _TILE, threads: int = _THREADS):
-    """Stable partition of int32 planes by bucket id: rows of bucket 0
-    first, each bucket in input order.
+    """Stable partition of int32 (or int64) planes by bucket id: rows of
+    bucket 0 first, each bucket in input order.
 
     ``bucket_ids`` must lie in [0, num_buckets) — a contract, not a checked
     precondition: the digit is ``ids & (radix - 1)``, so an id outside the
@@ -180,11 +184,14 @@ def bucket_counts(ids: torch.Tensor, num_buckets: int) -> torch.Tensor:
                                torch.ones_like(ids, dtype=torch.int32))
 
 
-def payloads_to_planes(payloads):
-    """Map 1-D payload tensors to int32 planes: 4-byte dtypes view as one
-    plane, 8-byte dtypes split into (lo, hi) word planes, narrower dtypes
-    widen to one plane (a 2-byte float by its bits).  Returns (planes,
-    specs) for :func:`planes_to_payloads`.  One span ``planes.split``."""
+def payloads_to_planes(payloads, words: bool = False):
+    """Map 1-D payload tensors to planes: 4-byte dtypes view as one int32
+    plane, 8-byte dtypes as one int64 plane (their bits: no copy of a
+    contiguous column), narrower dtypes widen to one int32 plane (a 2-byte
+    float by its bits).  ``words``: 8-byte dtypes split into (lo, hi) int32
+    word planes instead, the layout the distributed exchange packs.
+    Returns (planes, specs) for :func:`planes_to_payloads`.  One span
+    ``planes.split``."""
     with profiling.span("planes.split",
                         bytes=sum(p.nbytes for p in payloads)):
         planes, specs = [], []
@@ -192,8 +199,10 @@ def payloads_to_planes(payloads):
             c = dtypes.as_container(p).contiguous()
             if c.dtype.itemsize == 4:
                 planes.append(c.view(torch.int32))
-            elif c.dtype.itemsize == 8:
+            elif c.dtype.itemsize == 8 and words:
                 planes += list(_key_word_planes(c.view(torch.int64)))
+            elif c.dtype.itemsize == 8:
+                planes.append(c.view(torch.int64))
             else:
                 if c.dtype.is_floating_point:  # widen the bits, not the value
                     c = c.view(torch.int16)
@@ -203,11 +212,15 @@ def payloads_to_planes(payloads):
 
 
 def planes_to_payloads(planes, specs):
-    """Inverse of :func:`payloads_to_planes`.  One span ``planes.join``."""
+    """Inverse of :func:`payloads_to_planes`, with or without ``words``: a
+    payload whose plane has its width comes back as a view of the plane, a
+    word pair is interleaved back, a widened payload narrowed.  One span
+    ``planes.join``."""
     with profiling.span("planes.join", bytes=sum(p.nbytes for p in planes)):
         out, i = [], 0
         for dtype, container in specs:
-            if container.itemsize == 4:
+            if container.itemsize == 4 or (container.itemsize == 8 and
+                                           planes[i].element_size() == 8):
                 c = planes[i].view(container)
                 i += 1
             elif container.itemsize == 8:

@@ -72,7 +72,7 @@ def gather_rows(columns: Mapping, num_rows: int, mesh) -> dict:
     order (every rank calls it and gets them all)."""
     names = sorted(columns)
     planes, specs = stream.payloads_to_planes(
-        tuple(columns[n][:num_rows] for n in names))
+        tuple(columns[n][:num_rows] for n in names), words=True)
     cols = stream.planes_to_payloads(
         _gather_planes(planes, num_rows, mesh), specs)
     return {n: dtypes.tensor_to_numpy(c) for n, c in zip(names, cols)}
@@ -130,7 +130,7 @@ def _shuffle_table_chunks(table: Table, key: str, mesh,
     dest, sub = _hash_dest_sub(table[key], D, G)
     bucket = torch.where(table.valid_mask(), sub * D + dest, G * D)
     planes, specs = stream.payloads_to_planes(
-        tuple(table[n] for n in names))
+        tuple(table[n] for n in names), words=True)
     parted, counts, starts = exchange.partition_by_bucket(bucket, planes,
                                                           G * D + 1)
     overflow, chunks = exchange.all_to_all_chunks(parted, counts, starts,
@@ -209,7 +209,7 @@ def dist_top_k(table: Table, key: str, k: int, *, largest: bool = True,
                          f"{sum(c for _, c in info)}")
     kl = min(k, max(c for _, c in info))  # candidate slots a rank
     planes, specs = stream.payloads_to_planes(
-        tuple(cand.columns[n] for n in names))
+        tuple(cand.columns[n] for n in names), words=True)
     cols = dict(zip(names, stream.planes_to_payloads(_gather_planes(
         planes, cand.capacity, mesh, [kl] * D), specs)))
     rows = torch.tensor([r for r, _ in info], device=dev)

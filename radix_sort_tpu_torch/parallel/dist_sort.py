@@ -206,7 +206,8 @@ def dist_sort_kv(local_keys: torch.Tensor, local_values=None, mesh=None,
     ku = dtypes.to_sortable(local_keys)
     leaves, spec = (pytree.tree_flatten(local_values)
                     if local_values is not None else ([], None))
-    planes_pay, specs = stream.payloads_to_planes(tuple(leaves))
+    planes_pay, specs = stream.payloads_to_planes(tuple(leaves),
+                                                  words=True)
     if per > m:  # the max sentinel pads the shard, as in the JAX layout
         ku = torch.cat([ku, ku.new_full((per - m,), dtypes.SENTINEL_BITS)])
         planes_pay = tuple(torch.cat([p, p.new_zeros(per - m)])

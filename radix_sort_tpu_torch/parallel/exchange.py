@@ -171,7 +171,7 @@ def packed_all_to_all(parted, counts: torch.Tensor, starts: torch.Tensor,
     Returns (recv_arrays, recv_counts, overflow): the rows received,
     source-major, in each array's dtype; (D,) int32 counts by source; and
     whether some pair exceeded ``capacity``."""
-    planes, specs = stream.payloads_to_planes(tuple(parted))
+    planes, specs = stream.payloads_to_planes(tuple(parted), words=True)
     return _exchange_once(planes, specs, counts, starts, mesh, capacity)
 
 
@@ -186,7 +186,7 @@ def ragged_all_to_all(arrays, dest: torch.Tensor, mesh,
     if drop_mask is not None:
         dest = torch.where(drop_mask, D, dest)
         nb = D + 1  # a bucket past the last rank, never sent
-    planes, specs = stream.payloads_to_planes(tuple(arrays))
+    planes, specs = stream.payloads_to_planes(tuple(arrays), words=True)
     parted, counts, starts = partition_by_bucket(dest, planes, nb)
     return _exchange_once(parted, specs, counts, starts, mesh, capacity)
 

@@ -141,7 +141,8 @@ def test_cpu_tensors_take_the_plain_path_without_launching():
     cr.onesweep_pass(x, (x,), hist[0], 16, TILE)
     assert cr.launch_counts() == {"digit_histogram": 0, "exclusive_scan": 0,
                                   "rank_scatter": 0, "pass_histograms": 0,
-                                  "onesweep_pass": 0}
+                                  "onesweep_pass": 0, "wide_planes": 0,
+                                  "wide_launches": 0}
 
 
 def test_wrappers_reject_bad_input():

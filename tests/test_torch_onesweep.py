@@ -84,16 +84,44 @@ def test_pass_histograms_short_passes_and_bad_input():
         cr.pass_histograms((x, x[:2]), (1, 1), 16)
 
 
+def _wide_column(n: int, seed: int) -> np.ndarray:
+    """int64 bits of float64 values with NaNs of several payloads, -0.0,
+    +0.0 and infinities planted: what an 8-byte plane must move bit for
+    bit."""
+    rng = np.random.default_rng(seed)
+    f = rng.standard_normal(n)
+    plants = np.array([np.nan, -np.nan, -0.0, 0.0, np.inf, -np.inf])
+    f[rng.choice(n, min(n, 6 * len(plants)), replace=False)] = np.resize(
+        plants, min(n, 6 * len(plants)))
+    bits = f.view(np.int64).copy()
+    bits[::97] = rng.integers(0x7FF0000000000001, 0x7FFFFFFFFFFFFFFF,
+                              bits[::97].size)  # NaNs of other payloads
+    return bits
+
+
+def _pass_planes(t: torch.Tensor, n: int, payload: str):
+    """A pass's planes: the key plane and an iota, and with "mixed" two
+    8-byte planes (random int64, float64 bits) among more int32 ones."""
+    iota = torch.arange(n, dtype=torch.int32)
+    if payload == "int32":
+        return (t, iota)
+    rng = np.random.default_rng(n)
+    i64 = torch.from_numpy(rng.integers(-2**63, 2**63 - 1, n))
+    return (t, iota, i64, iota * 3, torch.from_numpy(_wide_column(n, n)))
+
+
+@pytest.mark.parametrize("payload", ["int32", "mixed"])
 @pytest.mark.parametrize("radix,shift", [(16, 4), (256, 8), (256, 24)])
 @pytest.mark.parametrize("n", [3 * TILE, 3 * TILE + 500])
-def test_onesweep_pass_plain_matches_rank_pass(radix, shift, n):
+def test_onesweep_pass_plain_matches_rank_pass(radix, shift, n, payload):
     """The look-back pass's plain destinations equal the JAX rank_pass with
-    a JAX-stitched base, and its planes move as that pass moves them."""
+    a JAX-stitched base, and its planes move as that pass moves them: int32
+    planes, and 8-byte ones among them (whole and ragged last tiles)."""
     rng = np.random.default_rng(n + shift)
     keys = rng.integers(-2**31, 2**31, n).astype(np.int32)
     digits = ((keys.view(np.uint32) >> shift) & (radix - 1)).astype(np.int32)
     t = torch.from_numpy(keys)
-    planes = (t, torch.arange(n, dtype=torch.int32))
+    planes = _pass_planes(t, n, payload)
     counts = torch.from_numpy(np.bincount(digits, minlength=radix)
                               .astype(np.int32))
     outs, dest = cr.onesweep_pass(t, planes, counts, radix, TILE, shift,
@@ -184,7 +212,28 @@ CASES = {
     "i64_payloads": (np.int64, "Random", 2),
     "u16": (np.uint16, "RandomDistributed", 1),
     "zeros": (np.uint32, "Zeros", 1),
+    # 8-byte payload planes (int64, uint64, float64 with NaNs and -0.0)
+    # beside int32 ones; a narrow key; every pass filled (the last launch
+    # copies); 20 payload planes, past the 16 of one launch
+    "u32_wide_payloads": (np.uint32, "RandomDistributed", 4),
+    "u16_wide_payloads": (np.uint16, "RandomDistributed", 4),
+    "zeros_wide_payloads": (np.uint32, "Zeros", 4),
+    "u32_20_payloads": (np.uint32, "RandomDistributed", 20),
 }
+
+
+def _case_payloads(npay: int, n: int, rng) -> list:
+    """An int32 iota, float64, then int64 and uint64 columns (the float64
+    ones with NaNs and -0.0), in turn with int32 ones past four."""
+    vals = [np.arange(n, dtype=np.int32), rng.standard_normal(n),
+            rng.integers(-2**63, 2**63 - 1, n),
+            rng.integers(0, 2**64 - 1, n, dtype=np.uint64)]
+    if npay >= 4:
+        vals[1] = _wide_column(n, 3).view(np.float64)
+    for i in range(4, npay):
+        vals.append(rng.integers(-2**31, 2**31, n).astype(np.int32)
+                    if i % 2 else _wide_column(n, i))
+    return vals[:max(npay, 1)]
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -202,8 +251,7 @@ def test_sort_reads_no_host_and_skips_filled_passes(case, monkeypatch):
     else:
         ds = {d.name: d for d in rtt.datasets.make_datasets(dtype, 3)}[dist]
         keys = ds.generate(n)
-    vals = [np.arange(n, dtype=np.int32),
-            rng.standard_normal(n)][:max(npay, 1)]
+    vals = _case_payloads(npay, n, rng)
     spy = _Spy(cr.onesweep_pass)
     monkeypatch.setattr(cr, "onesweep_pass", spy)
     reads = stream.host_reads
@@ -222,20 +270,24 @@ def test_sort_reads_no_host_and_skips_filled_passes(case, monkeypatch):
                          tuple(jnp.asarray(v) for v in vals))
     np.testing.assert_array_equal(tdt.tensor_to_numpy(ok), np.asarray(jk))
     for a, b in zip(ov, jv):
-        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        np.testing.assert_array_equal(tdt.tensor_to_numpy(a).view(np.uint8),
+                                      np.asarray(b).view(np.uint8))
 
 
+@pytest.mark.parametrize("payload", ["int32", "int64"])
 @pytest.mark.parametrize("num_buckets", [2, 100, 256, 1000])
-def test_partition_reads_no_host(num_buckets, monkeypatch):
+def test_partition_reads_no_host(num_buckets, payload, monkeypatch):
     """partition_planes: no host read, one launch a pass (one up to 256
     buckets, two 8-bit passes for 1000); its totals come from the pass
-    histogram (up to 256 buckets) and the planes are stably partitioned.
-    Ids all of one bucket fill every pass: the plan runs none and the last
-    launch copies the payload into new storage."""
+    histogram (up to 256 buckets) and the planes are stably partitioned,
+    an int32 plane or an 8-byte one.  Ids all of one bucket fill every
+    pass: the plan runs none and the last launch copies the payload into
+    new storage."""
     rng = np.random.default_rng(num_buckets)
     n = 5000
     ids = rng.integers(0, num_buckets, n).astype(np.int32)
-    pay = torch.arange(n, dtype=torch.int32)
+    base = 0 if payload == "int32" else 1 << 40  # both words vary
+    pay = torch.arange(n, dtype=getattr(torch, payload)) + base
     launches = 1 if num_buckets <= 256 else 2
     spy = _Spy(cr.onesweep_pass)
     monkeypatch.setattr(cr, "onesweep_pass", spy)
@@ -247,7 +299,7 @@ def test_partition_reads_no_host(num_buckets, monkeypatch):
     assert all(_planned_runs(spy))
     np.testing.assert_array_equal(counts.numpy(),
                                   np.bincount(ids, minlength=num_buckets))
-    np.testing.assert_array_equal(outs[0].numpy(),
+    np.testing.assert_array_equal(outs[0].numpy() - base,
                                   np.argsort(ids, kind="stable"))
     one = torch.full((n,), num_buckets - 1, dtype=torch.int32)
     spy = _Spy(cr.onesweep_pass)
@@ -959,3 +1011,245 @@ def test_cuda_narrow_sort_kv_matches_cpu_sort(cuda_device, dtype):
                          torch.from_numpy(iota))
     _bits_equal(gk.cpu(), ck)
     np.testing.assert_array_equal(gv.cpu().numpy(), cv.numpy())
+
+
+# ------------------------------------------------- 8-byte payload planes
+#
+# An int64, uint64 or float64 payload rides the passes as one 8-byte plane:
+# the plane handed to the kernels is a view of the caller's column, and the
+# column comes back as a view of the sorted plane.  The distributed layer's
+# exchange still packs int32 word planes.
+
+class _Calls:
+    """Records each call's arguments and result."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, []
+
+    def __call__(self, *a, **k):
+        out = self.fn(*a, **k)
+        self.calls.append((a, k, out))
+        return out
+
+
+def _storage(t: torch.Tensor) -> int:
+    return t.untyped_storage().data_ptr()
+
+
+@pytest.mark.parametrize("dtype", ["int64", "uint64", "float64"])
+@pytest.mark.parametrize("entry", ["sort_kv", "stable_partition"])
+def test_wide_payload_rides_without_a_copy(entry, dtype, monkeypatch):
+    """sort_kv and stable_partition hand cuda_radix.sort_passes the 8-byte
+    column itself (an int64 view of its storage, never split into word
+    planes) and return a view of the sorted plane, bits intact."""
+    n = 3 * TILE + 77
+    bits = _wide_column(n, 11)
+    col = torch.from_numpy(bits).view(getattr(torch, dtype))
+    iota = torch.arange(n, dtype=torch.int32)
+    sort_spy = _Calls(cr.sort_passes)
+    split_spy = _Calls(stream._key_word_planes)
+    monkeypatch.setattr(cr, "sort_passes", sort_spy)
+    monkeypatch.setattr(stream, "_key_word_planes", split_spy)
+    rng = np.random.default_rng(5)
+    if entry == "sort_kv":
+        keys = rng.integers(0, 50, n).astype(np.int32)
+        _, (got, perm) = rtt.sort_kv(torch.from_numpy(keys), (col, iota))
+        order = rtt.golden.oracle_argsort(keys)
+    else:
+        ids = rng.integers(0, 7, n).astype(np.int32)
+        (got, perm), _, _ = rtt.ops.partition.stable_partition(
+            torch.from_numpy(ids), (col, iota), 7, method="stream")
+        order = rtt.golden.oracle_argsort(ids)
+    (args, kwargs, (outs, _)), = sort_spy.calls
+    planes = args[2] if len(args) > 2 else kwargs["planes"]
+    wide = [p for p in planes if p.element_size() == 8]
+    assert len(wide) == 1 and wide[0].dtype == torch.int64
+    assert _storage(wide[0]) == _storage(col)
+    assert all(p.numel() == n for p in planes)
+    # no word split of the payload: only a key's planes are split
+    assert all(c[0][0].element_size() == 4 for c in split_spy.calls)
+    assert _storage(got) in {_storage(o) for o in outs}
+    np.testing.assert_array_equal(perm.numpy(), order)
+    np.testing.assert_array_equal(
+        tdt.tensor_to_numpy(got).view(np.int64), bits[order])
+
+
+def test_exchange_still_packs_int32_word_planes(monkeypatch):
+    """parallel/'s exchange splits an 8-byte column into its (lo, hi)
+    int32 word planes for the collectives, and joins them back bit for
+    bit: packed_all_to_all and ragged_all_to_all (their partition runs,
+    the transport is recorded in place of a mesh)."""
+    from types import SimpleNamespace
+
+    from radix_sort_tpu_torch.parallel import exchange
+
+    n = 1000
+    bits = _wide_column(n, 12)
+    cols = (torch.from_numpy(bits).view(torch.float64),
+            torch.arange(n, dtype=torch.int32))
+    sent = []
+
+    def record(planes, specs, counts, starts, mesh, capacity):
+        sent.append(tuple(planes))
+        return stream.planes_to_payloads(planes, specs), counts, False
+
+    monkeypatch.setattr(exchange, "_exchange_once", record)
+    mesh = SimpleNamespace(size=2)
+    counts = torch.tensor([n, 0], dtype=torch.int32)
+    got, _, _ = exchange.packed_all_to_all(cols, counts, counts * 0, mesh)
+    dest = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 2, n).astype(np.int32))
+    got2, _, _ = exchange.ragged_all_to_all(cols, dest, mesh)
+    assert len(sent) == 2
+    for planes in sent:
+        assert [p.dtype for p in planes] == [torch.int32] * 3
+    np.testing.assert_array_equal(
+        tdt.tensor_to_numpy(got[0]).view(np.int64), bits)
+    order = np.argsort(dest.numpy(), kind="stable")
+    np.testing.assert_array_equal(got2[1].numpy(), order)
+    np.testing.assert_array_equal(
+        tdt.tensor_to_numpy(got2[0]).view(np.int64), bits[order])
+    words, specs = stream.payloads_to_planes(cols, words=True)
+    planes, _ = stream.payloads_to_planes(cols)
+    assert [p.dtype for p in words] == [torch.int32] * 3
+    assert [p.dtype for p in planes] == [torch.int64, torch.int32]
+    for a, b in zip(stream.planes_to_payloads(words, specs), cols):
+        np.testing.assert_array_equal(tdt.tensor_to_numpy(a).view(np.uint8),
+                                      tdt.tensor_to_numpy(b).view(np.uint8))
+
+
+def test_wide_plane_checks():
+    """An 8-byte plane is a payload: never a key or digit plane; it may
+    share storage with a narrow key plane, which it is never taken for."""
+    n = 300
+    k32 = torch.arange(n, dtype=torch.int32).flip(0).contiguous()
+    i64 = torch.arange(n, dtype=torch.int64) << 33
+    with pytest.raises(ValueError, match="int32"):
+        cr.sort_passes((i64,), (4,), (), 256, TILE)
+    with pytest.raises(ValueError, match="int32"):
+        cr.sort_passes((), (1,), (k32,), 256, TILE, digit=i64)
+    with pytest.raises(ValueError):  # a 64-bit key's high word is int32
+        cr.sort_passes((k32, i64), (4, 4), (), 256, TILE)
+    with pytest.raises(ValueError):  # no float64 plane: its int64 bits
+        cr.sort_passes((k32,), (4,), (i64.double(),), 256, TILE)
+    outs, _ = cr.sort_passes((k32,), (4,), (i64,), 256, TILE)
+    np.testing.assert_array_equal(outs[1].numpy(), i64.flip(0).numpy())
+    buf = torch.arange(n, dtype=torch.int64)
+    alias = buf.view(torch.uint8)[:n]  # the key plane, in buf's storage
+    (ko, vo), _ = cr.sort_passes((alias,), (1,), (buf,), 256, TILE)
+    order = np.argsort(alias.numpy(), kind="stable")
+    np.testing.assert_array_equal(vo.numpy(), buf.numpy()[order])
+    np.testing.assert_array_equal(ko.numpy(), alias.numpy()[order])
+
+
+# ----------------------------------------- 8-byte planes on the card
+
+def _wide_on(n: int, device, seed: int = 0):
+    """An 8-byte plane of float64 bits on the card, and one that starts 8
+    bytes past a 16-byte boundary (the row-by-row loads)."""
+    col = torch.from_numpy(_wide_column(n + 1, seed)).to(device)
+    return col[:n], col[1:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile,threads", KERNEL_SHAPES)
+@pytest.mark.parametrize("n", [1, 4097, (1 << 20) + 77, 1 << 24])
+def test_cuda_wide_pass_kernel_both_modes_match_plain(cuda_device, n, tile,
+                                                      threads):
+    """The pass kernel's WIDE instance, look-back and base-table modes,
+    against the plain version bit for bit: int32 and 8-byte planes mixed,
+    an 8-byte plane off a 16-byte boundary among them."""
+    k = _keys(n, "random", cuda_device)
+    iota = torch.arange(n, dtype=torch.int32, device=cuda_device)
+    w0, w1 = _wide_on(n, cuda_device)
+    lb, bt, plain = _both_modes(k, (k, w0, iota, w1), 256, tile, 8,
+                                threads)
+    _assert_same(lb, plain)
+    _assert_same(bt, plain)
+    assert lb[0][1].dtype == torch.int64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dist", ["random", "zeros", "tile_digit"])
+def test_cuda_wide_pass_kernel_past_16_planes(cuda_device, dist):
+    """20 planes, 8-byte ones in both launch groups: the look-back launch
+    and a base-table launch each take the WIDE instance."""
+    n = (1 << 20) + 77
+    k = _keys(n, dist, cuda_device)
+    iota = torch.arange(n, dtype=torch.int32, device=cuda_device)
+    w0, w1 = _wide_on(n, cuda_device, seed=3)
+    planes = (k,) + tuple((w0 + i, iota + i, w1 - i)[i % 3]
+                          for i in range(19))
+    before = dict(cr.launch_counts())
+    lb, bt, plain = _both_modes(k, planes, 256, 4096, 0, 256)
+    after = cr.launch_counts()
+    assert after["onesweep_pass"] == before["onesweep_pass"] + 1
+    assert after["rank_scatter"] == before["rank_scatter"] + 3
+    # both groups of both modes hold an 8-byte plane
+    assert after["wide_launches"] == before["wide_launches"] + 4
+    _assert_same(lb, plain)
+    _assert_same(bt, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["u8", "i16", "f16"])
+def test_cuda_narrow_sort_kv_with_wide_payload(cuda_device, dtype):
+    """A narrow key with 8-byte payloads (its WIDE instance: two CTAs an
+    SM) on the card equals the same sort on the CPU, bit for bit, at a
+    ragged n; a filled sort (one key) copies them."""
+    d = np.dtype(NARROW[dtype])
+    n = (1 << 21) + 5
+    keys = _narrow_keys(d, n, 13)
+    bits = _wide_column(n, 14)
+    for ks in (keys, np.full(n, keys[7])):
+        vals = (bits, np.arange(n, dtype=np.int32), bits.view(np.float64))
+        g = rtt.sort_kv(tdt.tensor_from_numpy(ks, cuda_device),
+                        tuple(tdt.tensor_from_numpy(v, cuda_device)
+                              for v in vals))
+        c = rtt.sort_kv(tdt.tensor_from_numpy(ks, "cpu"),
+                        tuple(tdt.tensor_from_numpy(v, "cpu")
+                              for v in vals))
+        _bits_equal(g[0].cpu(), c[0])
+        for a, b in zip(g[1], c[1]):
+            _bits_equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_cuda_wide_planes_counter_and_span(cuda_device):
+    """A sort counts its 8-byte planes in launch_counts()["wide_planes"]
+    and in its radix.sort_passes span's ``wide``, and the wide instance's
+    launches in ``wide_launches``; a u32 KV sort counts none; a query's
+    spans add up to the counter."""
+    from radix_sort_tpu_torch.utils import profiling
+
+    n = 1 << 20
+    rng = np.random.default_rng(3)
+    keys = torch.from_numpy(rng.integers(0, 2**31, n).astype(np.int32)).to(
+        cuda_device)
+    iota = torch.arange(n, dtype=torch.int32, device=cuda_device)
+    w0, _ = _wide_on(n, cuda_device)
+    profiling.take_spans()
+    profiling.enable()
+    try:
+        cr.reset_launch_counts()
+        rtt.sort_kv(keys, iota)
+        assert cr.launch_counts()["wide_planes"] == 0
+        assert cr.launch_counts()["wide_launches"] == 0
+        rtt.sort_kv(keys, (w0, iota, w0.view(torch.float64)))
+        assert cr.launch_counts()["wide_planes"] == 2
+        # one launch group, launched once a pass of the u32 key
+        assert cr.launch_counts()["wide_launches"] == 4
+        cr.reset_launch_counts()
+        table = rtt.Table({"k": (keys % 5).to(torch.int16), "a": w0,
+                           "b": w0 * 3, "c": iota})
+        rtt.Query(table).filter("c", "ge", 7).group_by(
+            "k", sa=("sum", "a"), sb=("sum", "b"), n=("count", None)
+        ).sort_by("k").collect()
+        torch.cuda.synchronize()
+        counted = cr.launch_counts()["wide_planes"]
+    finally:
+        profiling.disable()
+    spans = [s for s in profiling.take_spans()
+             if s.name == "radix.sort_passes"]
+    assert [s.attrs["wide"] for s in spans[:2]] == [0, 2]
+    assert sum(s.attrs["wide"] for s in spans[2:]) == counted > 0

@@ -48,9 +48,10 @@ from radix_sort_tpu.ops import join as jjoin
 from radix_sort_tpu.ops import topk as jtopk, window as jwin
 from radix_sort_tpu.query import Query as JQuery
 from radix_sort_tpu.table import Table as JTable
+from radix_sort_tpu.ops import partition as jpart
 from radix_sort_tpu_torch import Query, datasets_device as dd
-from radix_sort_tpu_torch import dtypes as tdt, io as tio
-from radix_sort_tpu_torch.ops import aggregate, chunked_sort
+from radix_sort_tpu_torch import dtypes as tdt, golden, io as tio
+from radix_sort_tpu_torch.ops import aggregate, chunked_sort, partition
 from radix_sort_tpu_torch.ops import cuda_radix as cr, filter as filt, join
 from radix_sort_tpu_torch.ops import topk, window as win
 from radix_sort_tpu_torch.table import Table
@@ -377,6 +378,102 @@ def test_hash_join(dtype):
         tres = tres.with_columns(**{c: _t(_scan_image(tdt.tensor_to_numpy(
             tres[c]))) for c in ("bv", "k_r")})
     _valid_rows_equal(tres, jres)
+
+
+# ---- 8-byte payloads --------------------------------------------------------
+#
+# int64, uint64 and float64 payload columns ride the radix passes as one
+# 8-byte plane each: bits, never values, so every NaN payload and -0.0
+# survive.  Keys are int32 (u8 for the narrow pass), repeating, so
+# stability shows; an int32 row id checks it against golden.oracle_argsort.
+
+WIDE = [np.int64, np.uint64, np.float64]
+WIDE_IDS = ["i64", "u64", "f64"]
+WIDE_ENTRIES = ["sort_kv", "sort_kv_narrow_key", "stable_partition",
+                "hash_aggregate", "distinct", "query"]
+
+
+def _wide_payload(d, n=N, seed=27):
+    """Random bits of ``d`` with the specials planted; float64 with NaNs
+    of several payloads and signs, -0.0 and +0.0 among them."""
+    d = np.dtype(d)
+    v = _random_bits(np.random.default_rng(seed), d, n)
+    plants = _specials(d)
+    if d.kind == "f":
+        nans = np.array([0x7FF8000000000000, 0xFFF8000000000000,
+                         0x7FF0000000000001, 0x7FF4000000000ABC],
+                        np.uint64).view(d)
+        plants = np.concatenate([plants, nans, np.array([-0.0, 0.0], d)])
+    v[3::7][:len(plants) * 8] = np.tile(plants, 8)[:v[3::7].size]
+    return v
+
+
+@pytest.mark.parametrize("entry", WIDE_ENTRIES)
+@pytest.mark.parametrize("dtype", WIDE, ids=WIDE_IDS)
+def test_wide_payloads(dtype, entry):
+    """Each entry point that sorts or partitions rows, with an 8-byte
+    payload of ``dtype``: keys and payloads bit for bit the JAX package's,
+    and the row ids the stable order of golden.oracle_argsort."""
+    keys = _keys(np.int32, seed=28) % 40
+    pay = _wide_payload(dtype)
+    row = np.arange(N, dtype=np.int32)
+    if entry in ("sort_kv", "sort_kv_narrow_key"):
+        if entry == "sort_kv_narrow_key":
+            keys = keys.astype(np.uint8)
+        jk, (jp, jr) = rst.sort_kv(jnp.asarray(keys),
+                                   (jnp.asarray(pay), jnp.asarray(row)))
+        tk, (tp, tr) = rtt.sort_kv(_t(keys), (_t(pay), _t(row)))
+        order = golden.oracle_argsort(keys)
+        _bits_equal(tdt.tensor_to_numpy(tk), jk, "keys")
+        _bits_equal(tdt.tensor_to_numpy(tp), jp, "payload")
+        _bits_equal(tr.numpy(), jr, "row")
+        _bits_equal(tdt.tensor_to_numpy(tp), pay[order], "payload order")
+        np.testing.assert_array_equal(tr.numpy(), order)
+    elif entry == "stable_partition":
+        ids = (keys % 7).astype(np.int32)
+        jo, jc, _ = jpart.stable_partition(
+            jnp.asarray(ids), (jnp.asarray(pay), jnp.asarray(row)), 7,
+            method="sort")
+        (tp, tr), tc, _ = partition.stable_partition(
+            _t(ids), (_t(pay), _t(row)), 7, method="stream")
+        order = golden.oracle_argsort(ids)
+        np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+        _bits_equal(tdt.tensor_to_numpy(tp), jo[0], "payload")
+        _bits_equal(tdt.tensor_to_numpy(tp), pay[order], "payload order")
+        np.testing.assert_array_equal(tr.numpy(), order)
+    elif entry == "hash_aggregate":
+        # min/max select a row of the 8-byte column (one NaN pattern, as
+        # the module docstring says); sums add small integers exactly
+        vals = _values(dtype)
+        jt, tt = _tables({"k": keys, "v": vals, "w": _small(dtype)})
+        want = jax.jit(lambda t: jagg.hash_aggregate(t, "k", AGGS,
+                                                     method="segment"))(jt)
+        got = aggregate.hash_aggregate(tt, "k", AGGS, method="segment")
+        if np.dtype(dtype).kind == "f":
+            got = got.with_columns(**{c: _t(_ftz(tdt.tensor_to_numpy(
+                got[c]))) for c in ("lo", "hi")})
+        _capacity_equal(got, want)
+    elif entry == "distinct":
+        jt, tt = _tables({"k": keys, "p": pay, "row": row})
+        got = aggregate.distinct(tt, "k")
+        _valid_rows_equal(got, jax.jit(lambda t: jagg.distinct(t, "k"))(jt))
+        valid = keys[:NUM_ROWS]
+        order = golden.oracle_argsort(valid)
+        first = order[np.r_[True, valid[order][1:] != valid[order][:-1]]]
+        g = got.to_numpy()
+        np.testing.assert_array_equal(g["row"], first)
+        _bits_equal(g["p"], pay[first], "payload of each first row")
+    else:
+        jt, tt = _tables({"k": keys, "p": pay, "row": row})
+        want = jax.jit(lambda t: JQuery(t).filter("row", "ge", 3).sort_by(
+            "k").collect())(jt)
+        got = Query(tt).filter("row", "ge", 3).sort_by("k").collect()
+        _capacity_equal(got, want)
+        kept = np.arange(3, NUM_ROWS)
+        order = kept[golden.oracle_argsort(keys[kept])]
+        g = got.to_numpy()
+        np.testing.assert_array_equal(g["row"], order)
+        _bits_equal(g["p"], pay[order], "payload order")
 
 
 # ---- window, segmented_sort, segmented_sort_kv -----------------------------

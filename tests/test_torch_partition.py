@@ -11,7 +11,7 @@ import torch
 
 from radix_sort_tpu.ops import pallas_stream as ps
 from radix_sort_tpu.ops import partition as jpart, scan as jscan
-from radix_sort_tpu_torch import dtypes as tdt
+from radix_sort_tpu_torch import dtypes as tdt, golden
 from radix_sort_tpu_torch.ops import partition, scan, stream
 
 
@@ -34,14 +34,26 @@ def test_partition_planes_matches_pallas_stream():
 
 
 def _mixed_arrays(rng, n):
+    """4- and 8-byte columns; the float64 one holds NaNs of two payloads,
+    -0.0 and +0.0, which ride the 8-byte plane as bits."""
+    d = rng.standard_normal(n)
+    d[::11] = np.array([np.nan, -0.0, 0.0, -np.nan])[np.arange(
+        d[::11].size) % 4]
+    d.view(np.int64)[5::97] = 0x7FF0000000000ABC  # a NaN of another payload
     return {"f": rng.standard_normal(n).astype(np.float32),
             "i": np.arange(n, dtype=np.int32),
             "u": rng.integers(0, 2**32, n, dtype=np.uint32),
-            "l": rng.integers(-2**62, 2**62, n).astype(np.int64)}
+            "l": rng.integers(-2**62, 2**62, n).astype(np.int64),
+            "q": rng.integers(0, 2**64 - 1, n, dtype=np.uint64),
+            "d": d}
+
+
+def _bits(a: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(a).view(np.uint8)
 
 
 @pytest.mark.parametrize("method", ["stream", "rank", "sort"])
-@pytest.mark.parametrize("nb", [2, 5, 16, 300])
+@pytest.mark.parametrize("nb", [2, 5, 16, 300, 1000])
 def test_stable_partition_matches_jax_sort(method, nb):
     rng = np.random.default_rng(nb)
     n = 3000
@@ -61,7 +73,10 @@ def test_stable_partition_matches_jax_sort(method, nb):
     for k, x, y in zip(names, tout, jout):
         got = tdt.tensor_to_numpy(x)
         assert got.dtype == arrs[k].dtype
-        np.testing.assert_array_equal(got, np.asarray(y))
+        np.testing.assert_array_equal(_bits(got), _bits(np.asarray(y)))
+    # stable: the iota comes out as the stable order of the ids
+    np.testing.assert_array_equal(tdt.tensor_to_numpy(tout[names.index("i")]),
+                                  golden.oracle_argsort(ids))
 
 
 def test_sort_method_orders_out_of_range_ids_by_value():
@@ -91,7 +106,8 @@ def test_compact_mask_matches_jax(method):
     assert tk.dtype == torch.int32 and tk.ndim == 0
     assert int(tk) == int(jk)
     for x, y in zip(tout, jout):
-        np.testing.assert_array_equal(tdt.tensor_to_numpy(x), np.asarray(y))
+        np.testing.assert_array_equal(_bits(tdt.tensor_to_numpy(x)),
+                                      _bits(np.asarray(y)))
 
 
 def test_compact_prefix_slots_matches_jax():

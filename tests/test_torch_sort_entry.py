@@ -30,7 +30,9 @@ DTYPES = {"u32": np.uint32, "u64": np.uint64, "i32": np.int32,
           "f16": np.float16}
 # "Constant": one key, 0x5A in every byte, so one digit fills every pass
 DISTS = ("Zeros", "Range", "InvertedRange", "RandomDistributed", "Constant")
-PAYLOADS = (0, 1, 17)  # 17 payload planes make a second plane group
+# 17 payload planes make a second plane group; "17w": 17 of which 8 are
+# int64 (float64 bits among them), in both groups
+PAYLOADS = (0, 1, 17, "17w")
 
 
 @pytest.fixture
@@ -54,7 +56,17 @@ def _keys(dtype: str, dist: str, n: int) -> np.ndarray:
         dist].generate(n)
 
 
-def _payloads(npay: int, n: int) -> list:
+def _payloads(npay, n: int) -> list:
+    if npay == "17w":
+        rng = np.random.default_rng(170)
+        f = rng.standard_normal(n)
+        f[::7] = np.array([np.nan, -0.0, 0.0, -np.nan, np.inf, -np.inf,
+                           1.0])[np.arange(f[::7].size) % 7]
+        return [np.arange(n, dtype=np.int32)] + [
+            (f + i).view(np.int64) if i % 4 == 1 else
+            rng.integers(-2**63, 2**63 - 1, n) if i % 4 == 3 else
+            rng.integers(-2**31, 2**31, n).astype(np.int32)
+            for i in range(1, 17)]
     rng = np.random.default_rng(npay)
     return [np.arange(n, dtype=np.int32)] + [
         rng.integers(-2**31, 2**31, n).astype(np.int32)
@@ -113,24 +125,34 @@ def test_sort_entry_matches_jax(dtype, dist, npay, n, monkeypatch):
         jko, jvo = rst.sort_kv(jk, tuple(jnp.asarray(v) for v in vals))
         _bits_equal(ko, jko)
         for a, b in zip(vo, jvo):
-            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+            _bits_equal(a, b)
         _own_storage((ko,) + tuple(vo), (tk,) + tv)
     assert stream.host_reads == reads
 
 
+def _partition_planes(pay: str, n: int, rng) -> tuple:
+    """An iota and an int32 plane, or an iota and an 8-byte one."""
+    if pay == "int64":
+        return (np.arange(n, dtype=np.int32),
+                rng.integers(-2**63, 2**63 - 1, n))
+    return (np.arange(n, dtype=np.int32),
+            rng.integers(-2**31, 2**31, n).astype(np.int32))
+
+
+@pytest.mark.parametrize("pay", ["int32", "int64"])
 @pytest.mark.parametrize("ids_kind", ["random", "one_bucket"])
 @pytest.mark.parametrize("num_buckets", [2, 256, 1000])
 @pytest.mark.parametrize("n", SIZES)
-def test_partition_entry_matches_jax(n, num_buckets, ids_kind, monkeypatch):
+def test_partition_entry_matches_jax(n, num_buckets, ids_kind, pay,
+                                     monkeypatch):
     """partition_planes: one sort_passes call (the ids as a digit plane
     that does not move up to 256 buckets, two moving 8-bit passes for
-    1000), no host read, new storage, the planes and the counts equal the
-    JAX stable partition's."""
+    1000), no host read, new storage, the planes (int32, or an 8-byte one)
+    and the counts equal the JAX stable partition's."""
     rng = np.random.default_rng(num_buckets)
     ids = (rng.integers(0, num_buckets, n) if ids_kind == "random"
            else np.full(n, num_buckets // 3)).astype(np.int32)
-    planes = (np.arange(n, dtype=np.int32),
-              rng.integers(-2**31, 2**31, n).astype(np.int32))
+    planes = _partition_planes(pay, n, rng)
     spy = _Spy(cr.sort_passes)
     monkeypatch.setattr(cr, "sort_passes", spy)
     reads = stream.host_reads
@@ -225,21 +247,23 @@ def test_sort_passes_matches_per_pass_launches(dtype, dist, npay, n,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("pay", ["int32", "int64"])
 @pytest.mark.parametrize("ids_kind", ["random", "one_bucket"])
 @pytest.mark.parametrize("num_buckets", [2, 256, 1000])
 @pytest.mark.parametrize("n", SIZES)
 def test_partition_passes_match_per_pass_launches(n, num_buckets, ids_kind,
-                                                  cuda_device):
+                                                  pay, cuda_device):
     """A partition's sort_passes (the ids a digit plane that does not move
     up to 256 buckets, else two moving passes) against the per-pass
-    launches, with the same launch counts."""
+    launches, with the same launch counts, int32 planes or an 8-byte one
+    among them."""
     rng = np.random.default_rng(num_buckets)
     ids = torch.from_numpy((rng.integers(0, num_buckets, n)
                             if ids_kind == "random"
                             else np.full(n, num_buckets // 3)).astype(
                                 np.int32)).to(cuda_device)
-    planes = tuple(torch.from_numpy(p).to(cuda_device) for p in _payloads(
-        2, n))
+    planes = tuple(torch.from_numpy(p).to(cuda_device)
+                   for p in _partition_planes(pay, n, rng))
     radix = max(2, stream._next_pow2(num_buckets))
     if radix <= 256:
         args = ((), (1,), planes, radix, TILE)
@@ -257,6 +281,8 @@ def test_partition_passes_match_per_pass_launches(n, num_buckets, ids_kind,
     for a, b in zip(outs, want):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     _own_storage(outs, (ids,) + planes)
+    if pay == "int64":
+        assert c1["wide_planes"] - c0["wide_planes"] == 1
 
 
 @pytest.mark.cuda

@@ -159,6 +159,26 @@ def test_query_spans_name_each_step(spans_off, clock_reads):
     np.testing.assert_array_equal(got["sum_qty"], _q1(table)["sum_qty"])
 
 
+def test_query_sorts_count_their_8_byte_planes(spans_off):
+    """Each sort and compaction of the Q1 shape names in its
+    radix.sort_passes span the 8-byte planes it moves as they are: the
+    filter's four int64 decimals beside the int32 date and the two widened
+    flags, the group-by sort's three int64 inputs, its compaction's three
+    int64 sums beside the int32 key and counts, the final sort's 8-byte
+    result columns."""
+    profiling.enable()
+    _q1(_q1_table())
+    profiling.disable()
+    spans = profiling.take_spans()
+    by = _by_id(spans)
+    got = [([a for a in _ancestors(s, by) if a.startswith("query.")][0],
+            s.attrs) for s in spans if s.name == "radix.sort_passes"]
+    assert got == [("query.filter", {"planes": 7, "wide": 4}),
+                   ("query.group_by", {"planes": 3, "wide": 3}),
+                   ("query.group_by", {"planes": 6, "wide": 3}),
+                   ("query.sort_by", {"planes": 5, "wide": 3})]
+
+
 def test_sort_spans_and_attributes(spans_off):
     profiling.enable()
     _sort_kv_i64()
@@ -169,14 +189,14 @@ def test_sort_spans_and_attributes(spans_off):
     by = _by_id(spans)
     got = [(s.name, by[s.parent].name if s.parent is not None else None)
            for s in spans]
+    # the int64 payload rides as one 8-byte plane: no split or join of
+    # its words inside the payloads' spans
     kv = [("sort_kv", None),
           ("planes.split", "sort_kv"),       # the payloads into planes
-          ("planes.split", "planes.split"),  # the int64 one's two words
           ("planes.split", "sort_kv"),       # the key's word plane
           ("radix.sort_passes", "sort_kv"),
           ("planes.join", "sort_kv"),        # the key back
-          ("planes.join", "sort_kv"),        # the payloads back
-          ("planes.join", "planes.join")]    # the int64 one's two words
+          ("planes.join", "sort_kv")]        # the payloads back
     arg = [("argsort", None), ("sort_kv", "argsort"),
            ("planes.split", "sort_kv"), ("planes.split", "sort_kv"),
            ("radix.sort_passes", "sort_kv"), ("planes.join", "sort_kv"),
@@ -184,7 +204,8 @@ def test_sort_spans_and_attributes(spans_off):
     assert got == kv + arg
     assert spans[0].attrs == {"rows": 2000}
     assert spans[1].attrs == {"bytes": 2000 * 8}
-    assert spans[4].attrs == {"planes": 2}
+    assert spans[3].attrs == {"planes": 1, "wide": 1}
+    assert spans[len(kv) + 4].attrs == {"planes": 1, "wide": 0}
     assert spans[0].call != spans[len(kv)].call
 
 
