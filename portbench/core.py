@@ -13,11 +13,22 @@ its jitter).  Rates and set-up are host-clock times of seconds.
 A traced run (``trace``) drives the same window and profiles one stretch
 of it (``PROFILE_S`` seconds from its middle); the calls outside the
 stretch give the host-clock enqueue times and the program's counters.
+
+On several cards (``ranks``, from ``launch.py``) every rank runs this in
+lockstep: before each call rank 0's decision (call, profile or stop) is
+broadcast on the harness's gloo group, outside the timed interval; each
+rank times its calls as one card does; after the window a call's latency
+is the slowest rank's, the peak the fullest card's, and every rank's
+profiled stretch is gathered: the readers of the device trace read the
+rank with the most device time a call outside NCCL's kernels (the hot
+rank, the one the others wait for).  The window's
+host seconds and the counters are rank 0's.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import random
 import time
 
@@ -30,6 +41,7 @@ PROFILE_S = 1.0            # host seconds of the profiled stretch
 PROFILE_MAX_CALLS = 20000  # bounds the profiler's records
 PROFILE_SESSIONS = 3       # a session with no device rows is taken again
 WARMUP_CALLS = 2
+CALL, PROFILE, STOP = 0, 1, 2  # what the window does next
 
 
 @dataclasses.dataclass
@@ -40,6 +52,8 @@ class Reading:
     enqueue_ms: list      # host ms from a call's start to the entry's return
     counters: dict        # growth of the program's counters a call
     device_name: str
+    rank_traces: list | None = None  # every rank's stretch, several cards
+    hot_rank: int | None = None      # whose stretch ``trace`` is
 
 
 @dataclasses.dataclass
@@ -54,6 +68,7 @@ class Result:
     answers: int          # answers compared
     wrong: int            # answers over a limit
     reading: Reading | None = None
+    rank_peak_bytes: list | None = None  # each rank's, several cards
 
 
 def held_bytes(answer) -> int:
@@ -70,12 +85,20 @@ def _device_name(dev) -> str:
     return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
 
 
+def hot_rank(traces: list) -> int:
+    """The rank whose stretch had the most device time a call outside
+    NCCL's kernels (``Trace.work_us``)."""
+    return max(range(len(traces)),
+               key=lambda r: traces[r].work_us() / traces[r].calls)
+
+
 def drive(cell, seed: int, seconds: float, trace: bool, device,
-          t_start: float, program: str = "port") -> Result:
+          t_start: float, program: str = "port", ranks=None) -> Result:
     """Run ``cell`` once: inputs from ``seed``, warm-up, a window of
     ``seconds``, then the check.  ``program`` is "port" (the system under
     test) or "control" (the reference's control in its place).
-    ``t_start`` is the wall time the run began."""
+    ``t_start`` is the wall time the run began.  ``ranks``
+    (``launch.Ranks``) makes this one rank of a run on several cards."""
     mix, ref = cell.mix, cell.reference
     dev = torch.device(device)
     on_card = dev.type == "cuda"
@@ -84,7 +107,21 @@ def drive(cell, seed: int, seconds: float, trace: bool, device,
         if on_card:
             torch.cuda.synchronize(dev)
 
-    inputs = mix.make_inputs(cell, seed, dev)
+    def agreed(value):
+        """Rank 0's ``value`` on every rank; on one card the value."""
+        return value if ranks is None else ranks.flag(value)
+
+    def everywhere(ok: bool) -> bool:
+        return ok if ranks is None else all(ranks.gather(bool(ok)))
+
+    def capture(seconds_, max_calls, min_calls=3):
+        return trace_lib.capture(step, sync, seconds_, dev, max_calls,
+                                 min_calls, agree=agreed)
+
+    if ranks is None:
+        inputs = mix.make_inputs(cell, seed, dev)
+    else:
+        inputs = mix.make_inputs(cell, seed, dev, ranks)
     if program == "port":
         state = mix.prepare(cell, inputs, dev)
 
@@ -123,11 +160,26 @@ def drive(cell, seed: int, seconds: float, trace: bool, device,
     def step():
         timed_call()
 
+    # On several cards each warm-up call's answer is kept through the
+    # next, as the window keeps its drawn answer through the calls after
+    # it: the allocator's cache is then shaped for the window's calls, and
+    # the window's first calls allocate no new device memory.  A rank's
+    # start-up objects are collected and frozen before the warm-ups: no
+    # collection in the window scans them, and the window starts right
+    # after a warm call, not after an idle card's collection.
+    if ranks is not None:
+        gc.collect()
+        gc.freeze()
+    warm = None
     for _ in range(WARMUP_CALLS):
-        timed_call()
+        if ranks is None:
+            timed_call()
+        else:
+            warm = timed_call()[0]
+    warm = None
     sync()
     if trace:  # the profiler's own start-up, outside the window
-        trace_lib.capture(step, sync, 0.0, dev, max_calls=1, min_calls=1)
+        capture(0.0, max_calls=1, min_calls=1)
     ready_s = time.time() - t_start
 
     # KEEP_ALL mixes answer with a few host rows and keep every answer;
@@ -155,15 +207,17 @@ def drive(cell, seed: int, seconds: float, trace: bool, device,
     ans = None
     while True:
         e = time.perf_counter() - t0
-        if e >= seconds:
+        nxt = agreed(STOP if e >= seconds else
+                     PROFILE if trace and prof is None and e >= seconds / 2
+                     else CALL)
+        if nxt == STOP:
             break
         ans = last = None  # only the sample outlives its call
-        if trace and prof is None and e >= seconds / 2:
+        if nxt == PROFILE:
             now = mix.counters()
             for k, v in now.items():
                 grown[k] = grown.get(k, 0) + v - before[k]
-            prof = trace_lib.capture(step, sync, PROFILE_S, dev,
-                                     PROFILE_MAX_CALLS)
+            prof = capture(PROFILE_S, PROFILE_MAX_CALLS)
             calls += prof.calls
             before = mix.counters()
             continue
@@ -187,16 +241,27 @@ def drive(cell, seed: int, seconds: float, trace: bool, device,
         grown[k] = grown.get(k, 0) + v - before[k]
     peak = max(peak, peak_so_far())
 
+    rank_peaks = None
+    if ranks is not None:  # a call ends when its slowest rank's ends
+        lat_ms = [max(c) for c in zip(*ranks.gather(lat_ms))]
+        rank_peaks = ranks.gather(peak)
+        peak = max(rank_peaks)
+
     reading = None
     if trace:
         for _ in range(PROFILE_SESSIONS - 1):
-            if prof is not None and prof.events:
+            if everywhere(prof is not None and bool(prof.events)):
                 break
-            prof = trace_lib.capture(step, sync, PROFILE_S, dev,
-                                     PROFILE_MAX_CALLS)
+            prof = capture(PROFILE_S, PROFILE_MAX_CALLS)
         reading = Reading(prof, enq_ms,
                           {k: v / max(counted_calls, 1)
                            for k, v in grown.items()}, _device_name(dev))
+        if ranks is not None:
+            traces = ranks.gather(prof)
+            if all(t.events for t in traces):
+                hot = hot_rank(traces)
+                reading.trace, reading.hot_rank = traces[hot], hot
+                reading.rank_traces = traces
 
     if not keep_all:
         kept = [sample] if last is None or last is sample else [sample,
@@ -217,4 +282,4 @@ def drive(cell, seed: int, seconds: float, trace: bool, device,
         for k, v in got.items():
             checks[k] = max(checks.get(k, v), v)
     return Result(ready_s, calls, window_s, lat_ms, peak, _device_name(dev),
-                  checks, len(kept), wrong, reading)
+                  checks, len(kept), wrong, reading, rank_peaks)

@@ -1,6 +1,6 @@
 """glue_device_ms: device ms a call in PyTorch's own library kernels
 (``trace.is_library``: ATen, c10, cub, thrust), the torch ops the
-program's operators are glued from."""
+program's operators are glued from.  On several cards, the hot rank's."""
 
 from portbench import trace
 

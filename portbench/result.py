@@ -4,6 +4,7 @@ readers, and the numbers compared beside their limits (last)."""
 from __future__ import annotations
 
 import dataclasses
+import statistics
 import sys
 
 from . import trace as trace_lib
@@ -50,16 +51,25 @@ def assemble(cell, res, setup_s: float, trace: bool, platform: str,
         value = cell.reader(m["name"]).read(run)
         if value is not None:
             metrics[m["name"]] = {"value": float(value), "unit": m["unit"]}
-    device = {"platform": platform, "kind": res.device_name, "count": 1,
-              "memory_peak_bytes": res.peak_bytes}
+    device = {"platform": platform, "kind": res.device_name,
+              "count": cell.chips, "memory_peak_bytes": res.peak_bytes}
     line = {"correct": bool(correct), "attempted": res.calls,
             "failed": res.wrong, "metrics": metrics, "device": device}
     reading = run.traced
     if trace and reading:
-        device["busy_s"] = reading.trace.busy_us() / 1e6
-        device["window_s"] = reading.trace.span_us / 1e6
-        line["breakdown"] = {"device_ops": trace_lib.top_ops(reading.trace),
-                             "idle_gaps": trace_lib.top_gaps(reading.trace)}
+        # busy and traced seconds averaged over the cards; the breakdown
+        # is the hot rank's, its names led by that rank
+        traces = reading.rank_traces or [reading.trace]
+        device["busy_s"] = statistics.fmean(
+            t.busy_us() for t in traces) / 1e6
+        device["window_s"] = statistics.fmean(
+            t.span_us for t in traces) / 1e6
+        lead = ("" if reading.hot_rank is None
+                else f"rank {reading.hot_rank}: ")
+        line["breakdown"] = {
+            k: [[lead + n, s] for n, s in top(reading.trace)]
+            for k, top in (("device_ops", trace_lib.top_ops),
+                           ("idle_gaps", trace_lib.top_gaps))}
     line.update(extra or {})
     line["checks"] = {k: {"value": checks.get(k), "limit": limits[k]}
                       for k in limits}

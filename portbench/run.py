@@ -10,11 +10,21 @@ cell's end-to-end metrics, or with ``--trace 1`` its per-layer ones),
 last ``checks``: every number compared with the plain reference beside
 its limit, which are also the last lines of standard error.
 
-Exit codes: 0 with a result; 2 for a cell of more than one card, which
-this harness does not drive; 3 where no CUDA card, or fewer than the
+A cell of one card runs in this process.  A cell of four
+(``"chips": 4``) runs one process a card (``portbench/launch.py``): this
+process builds the kernel library, spawns the ranks with ``MASTER_ADDR``,
+``MASTER_PORT``, ``WORLD_SIZE``, ``RANK`` and ``LOCAL_RANK`` set, and
+prints rank 0's result line once every rank has ended with code 0;
+set-up counts from this process's start, the ranks' start and NCCL's
+set-up included.
+
+Exit codes: 0 with a result; 3 where no CUDA card, or fewer than the
 cell needs, is visible; 4 where a JAX module or the JAX package was
-loaded; any other failure raises (1).  ``--program control`` puts the
-reference's control in the program's place.
+loaded (in this process or a rank); any other failure, of this process
+or of a rank, raises (1) or ends the run with that rank's code, every
+other rank killed and no result printed; 124 where the ranks did not end
+within the launcher's limit.  ``--program control`` puts the reference's
+control in the program's place.
 """
 
 import time
@@ -77,22 +87,30 @@ def main(argv=None) -> int:
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}"
               f" visible: no result", file=sys.stderr)
         return 3
-    if cell.chips != 1:
-        print(f"{cell.name} asks for {cell.chips} cards; this harness drives "
-              f"one: no result", file=sys.stderr)
-        return 2
-    from portbench import core
     from radix_sort_tpu_torch import _build
 
     t = time.time()
     _build.build()  # the program's kernel library, once a checkout
     build_s = time.time() - t
-    res = core.drive(cell, args.seed, args.seconds, bool(args.trace), "cuda",
-                     T_START, args.program)
-    line = result.assemble(
-        cell, res, res.ready_s, bool(args.trace), "gpu",
-        {"seed": args.seed, "program": args.program, "build_s": build_s,
-         "window_s": res.window_s, "power_limit_w": power_limit_w()})
+    extra = {"seed": args.seed, "program": args.program, "build_s": build_s}
+    if cell.chips == 1:
+        from portbench import core
+
+        res = core.drive(cell, args.seed, args.seconds, bool(args.trace),
+                         "cuda", T_START, args.program)
+        line = result.assemble(
+            cell, res, res.ready_s, bool(args.trace), "gpu",
+            {**extra, "window_s": res.window_s,
+             "power_limit_w": power_limit_w()})
+    else:
+        from portbench import launch
+
+        rc, line = launch.launch(
+            cell, {"seed": args.seed, "seconds": args.seconds,
+                   "trace": bool(args.trace), "program": args.program},
+            T_START, {**extra, "power_limit_w": power_limit_w()})
+        if rc != 0:
+            return rc
     bad = result.forbidden_modules()
     if bad:
         print(f"loaded, and must not be: {', '.join(bad)}: no result",

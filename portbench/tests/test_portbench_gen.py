@@ -92,3 +92,44 @@ def test_lineitem_follows_tpch_rules():
     assert np.all(flag[ship <= 9298 - 30] != ord("N"))
     ra = flag[ship <= 9298 - 30]
     assert abs((ra == ord("R")).mean() - 0.5) < 0.01
+
+
+def test_hurwitz_zeta_and_the_zipf_residue_law():
+    from portbench.gen import zipf
+
+    assert zipf.hurwitz_zeta(2.0, 1.0) == pytest.approx(np.pi**2 / 6,
+                                                        rel=1e-14)
+    q, s = 0.3, 1.3
+    n = np.arange(10**6, dtype=np.float64)
+    direct = ((q + n) ** -s).sum() + (q + 1e6) ** (1 - s) / (s - 1) \
+        + (q + 1e6) ** -s / 2
+    assert zipf.hurwitz_zeta(s, q) == pytest.approx(direct, rel=1e-12)
+    p = zipf.residue_pmf(1.3, 4096)
+    assert p.sum() == pytest.approx(1.0) and p[1] == pytest.approx(
+        1 / zipf.hurwitz_zeta(1.3, 1.0), rel=1e-3)
+    # numpy's own sampler, as BASELINE config 5 draws its probe keys
+    ref = np.random.default_rng(5).zipf(1.3, 1 << 20) % 4096
+    got = np.bincount(ref, minlength=4096) / ref.size
+    assert np.abs(got[:8] - p[:8]).max() < 2e-3
+
+
+def test_zipf_keys_by_seed_and_rank():
+    from portbench.gen import zipf
+
+    big = 2**33 + 5
+    a = zipf.keys(1 << 20, 1.3, 4096, big, 2, "cpu")
+    assert a.dtype == torch.uint32
+    k = a.view(torch.int32)
+    assert torch.equal(k, zipf.keys(1 << 20, 1.3, 4096, big, 2,
+                                    "cpu").view(torch.int32))
+    assert not torch.equal(k, zipf.keys(1 << 20, 1.3, 4096, big, 1,
+                                        "cpu").view(torch.int32))
+    assert not torch.equal(k, zipf.keys(1 << 20, 1.3, 4096, big + 1, 2,
+                                        "cpu").view(torch.int32))
+    assert 0 <= int(k.min()) and int(k.max()) < 4096
+    assert 0.23 <= float((k == 1).double().mean()) <= 0.28
+    n = 1 << 12  # the whole table again, each rank's rows as it made them
+    whole = zipf.global_keys(n, 4, 1.3, 4096, big, "cpu").view(torch.int32)
+    for r in range(4):
+        assert torch.equal(whole[r * n:(r + 1) * n], zipf.keys(
+            n, 1.3, 4096, big, r, "cpu").view(torch.int32))

@@ -88,3 +88,42 @@ def test_held_bytes_counts_device_storage_once():
     cpu = torch.zeros(8, dtype=torch.int32)
     assert core.held_bytes({"keys": cpu, "values": None}) == 0
     assert core.held_bytes(None) == 0
+
+
+NCCL = "ncclDevKernel_SendRecv(ncclDevKernelArgsStorage<4096ul>)"
+
+
+def test_the_hot_rank_and_the_exchange_readers_on_four_ranks():
+    # a call each: every rank's NCCL kernel runs until the slowest rank
+    # (rank 2, 6 ms of its own work) is done, so device-busy time reads
+    # alike; the work outside NCCL does not
+    def rank(work_ms):
+        return trace.Trace([(KV, 0, work_ms * 1e3, trace.KERNEL),
+                            (NCCL, work_ms * 1e3, 7000, trace.KERNEL),
+                            (ATEN, 7000, 8000, trace.KERNEL)], 10000, 1)
+
+    traces = [rank(w) for w in (2, 3, 6, 3)]
+    assert all(t.busy_us() == 8000 for t in traces)
+    assert core.hot_rank(traces) == 2
+    run = _run("dist-query-4x2p28", traces[2].events, 1,
+               counters={"host_reads": 9.0})
+    r = run.result.reading
+    r.rank_traces, r.hot_rank = traces, 2
+    assert _read("exchange_device_ms", run) == pytest.approx(1.0)
+    # 7 ms of work on rank 2 against a mean of (3 + 4 + 7 + 4) / 4
+    assert _read("rank_imbalance", run) == pytest.approx(7 / 4.5)
+    assert _read("port_kernel_ms", run) == pytest.approx(6.0)
+    assert _read("glue_device_ms", run) == pytest.approx(1.0)
+    assert _read("host_reads_per_call", run) == 9.0
+    line = result.assemble(run.cell, run.result, 1.0, True, "gpu")
+    assert line["device"]["count"] == 4
+    assert line["device"]["busy_s"] == pytest.approx(8e-3)
+    assert all(n.startswith("rank 2: ")
+               for n, _ in line["breakdown"]["device_ops"])
+
+
+def test_the_exchange_readers_read_nothing_on_one_card():
+    run = _run("dist-query-4x2p28", [(KV, 0, 1, trace.KERNEL)], 1)
+    for name in ("exchange_device_ms", "rank_imbalance",
+                 "host_reads_per_call"):
+        assert _read(name, run) is None, name

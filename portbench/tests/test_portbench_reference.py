@@ -89,3 +89,79 @@ def test_q1_control_rounds_the_sums(small_cell):
     got = ref.compare(cell, inputs, ref.expected(cell, inputs),
                       ref.control(cell, inputs))
     assert got["sums_wrong"] > ref.LIMITS["sums_wrong"]
+
+
+def _dist_inputs(n=1 << 14):
+    """The dist cell's inputs for a world of one rank, and its answer
+    worked out here with NumPy."""
+    from types import SimpleNamespace
+
+    from portbench import spec
+
+    cell = spec.cell("dist-query-4x2p28")
+    cell.config["rows_per_rank"] = n
+    one = SimpleNamespace(rank=0, size=1, gather=lambda o: [o],
+                          all_reduce=lambda t: t)
+    inputs = cell.mix.make_inputs(cell, 2**31 + 3, torch.device("cpu"), one)
+    k = inputs["k"].view(torch.int32).numpy().astype(np.int64)
+    order = np.argsort(k, kind="stable")
+    uk, cnt = np.unique(k, return_counts=True)
+    kt = inputs["k"]
+    ans = {"join_k": kt.clone(), "join_k_r": kt.clone(),
+           "join_pv": inputs["pv"].clone(),
+           "join_bv": torch.from_numpy((k * 7).astype(np.int32)),
+           "match_count": torch.tensor(n, dtype=torch.int32),
+           "join_overflow": torch.tensor(False), "agg_k": uk, "agg_n": cnt,
+           "sort_k": torch.from_numpy(k[order].astype(np.int32)).view(
+               torch.uint32),
+           "sort_v": torch.from_numpy(order.astype(np.int32)),
+           "sort_overflow": False}
+    return cell, inputs, ans
+
+
+def test_dist_reference_passes_the_answer_and_fails_each_fault():
+    cell, inputs, ans = _dist_inputs()
+    ref = cell.reference
+    exp = ref.expected(cell, inputs)
+    assert ref.compare(cell, inputs, exp, ans) == dict.fromkeys(ref.LIMITS,
+                                                                0)
+
+    def broken(**change):
+        got = ref.compare(cell, inputs, exp, {**ans, **change})
+        return {k for k, v in got.items() if v > 0}
+
+    k, v = ans["sort_k"].view(torch.int32), ans["sort_v"]
+    i = int(torch.nonzero(k[1:] == k[:-1])[0])  # two rows of one key
+    swapped = v.clone()
+    swapped[i], swapped[i + 1] = v[i + 1], v[i]
+    assert broken(sort_v=swapped) == {"sort_wrong"}
+    assert broken(sort_k=ans["sort_k"][:-1],
+                  sort_v=ans["sort_v"][:-1]) == {"sort_wrong"}
+    # a joined row id twice and another not at all, both of one key
+    jk = ans["join_k"].view(torch.int32)
+    a, b = torch.nonzero(jk == 1)[:2, 0].tolist()
+    pv = ans["join_pv"].clone()
+    pv[b] = pv[a]
+    assert broken(join_pv=pv) == {"join_rows_wrong"}
+    bv = ans["join_bv"].clone()
+    bv[5] += 7
+    assert broken(join_bv=bv) == {"join_rows_wrong"}
+    assert broken(match_count=torch.tensor(len(pv) - 1)) == {
+        "join_match_wrong"}
+    n = ans["agg_n"].copy()
+    n[0] += 1
+    assert broken(agg_n=n) == {"counts_wrong"}
+
+
+def test_dist_control_counts_round_past_2_to_the_24():
+    """The control's float32 counts: 2^25 rows of one key count 2^24."""
+    from portbench import spec
+
+    ref = spec.cell("dist-query-4x2p28").reference
+    keys = torch.ones(1 << 25, dtype=torch.int32).view(torch.uint32)
+    k, n = ref.float32_counts(keys, 4096)
+    assert k.tolist() == [1] and n.tolist() == [1 << 24]
+    exp = {"counts": torch.bincount(torch.ones(1 << 25, dtype=torch.int64),
+                                    minlength=4096)}
+    assert ref._counts(exp, {}, {"agg_k": k, "agg_n": n}) == {
+        "counts_wrong": 1}

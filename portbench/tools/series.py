@@ -6,8 +6,9 @@ check runs them, and keep every result line.
 
 A run is ``workload|seeds|seconds|trace|program``; several seeds joined by
 ``+`` run one after another, a process each.  Each result line is
-appended to ``--out`` with the run's exit code and wall seconds; a
-summary line a result is printed."""
+appended to ``--out`` with the run's exit code, wall seconds and the
+run's stderr tables (``span_breakdown``, ``rank_breakdown``); a summary
+line a result is printed."""
 
 from __future__ import annotations
 
@@ -75,13 +76,19 @@ def main(argv=None) -> int:
         wall = time.time() - t
         worst = max(worst, rc)
         lines = [ln for ln in stdout.splitlines() if ln.startswith("{")]
+        tables = {ln.split(" ", 1)[0]: json.loads(ln.split(" ", 1)[1])
+                  for ln in stderr.splitlines()
+                  if ln.startswith(("span_breakdown ", "rank_breakdown "))}
         print(f"## {w} seed {seed}: rc={rc} wall={wall:.1f}s", flush=True)
         with open(out, "a") as f:
             for ln in lines:
                 rec = json.loads(ln)
-                rec.update(workload=w, rc=rc, wall_s=wall)
+                rec.update(workload=w, rc=rc, wall_s=wall, **tables)
                 f.write(json.dumps(rec) + "\n")
                 print("   " + summary(rec), flush=True)
+                if "rank_breakdown" in tables:
+                    print("   rank_breakdown "
+                          + json.dumps(tables["rank_breakdown"]), flush=True)
             if rc != 0 or not lines:
                 f.write(json.dumps({"workload": w, "seed": seed, "rc": rc,
                                     "stderr": stderr[-3000:]}) + "\n")

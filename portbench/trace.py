@@ -43,6 +43,13 @@ class Trace:
     def idle_share(self) -> float:
         return 1.0 - self.busy_us() / self.span_us
 
+    def work_us(self) -> float:
+        """Device time outside NCCL's kernels: what a rank computes.  A
+        NCCL kernel also runs while it waits for a slower peer, so on
+        several cards device-busy time reads alike on every rank."""
+        return window.union_length([(a, b) for n, a, b, _ in self.events
+                                    if not is_collective(n)])
+
 
 def kind_of(name: str) -> str | None:
     if name.startswith("Memset"):
@@ -59,6 +66,12 @@ def is_library(name: str) -> bool:
     return bool(_LIBRARY.search(name))
 
 
+def is_collective(name: str) -> bool:
+    """A kernel of NCCL, the collectives between cards (not the
+    program's)."""
+    return name.startswith("nccl")
+
+
 def per_call_ms(trace: Trace, pred) -> float:
     """Device ms a call in the events ``pred(name, kind)`` keeps."""
     us = sum(b - a for n, a, b, k in trace.events if pred(n, k))
@@ -66,10 +79,11 @@ def per_call_ms(trace: Trace, pred) -> float:
 
 
 def capture(step, sync, seconds: float, device, max_calls: int,
-            min_calls: int = 3) -> Trace:
+            min_calls: int = 3, agree=None) -> Trace:
     """Profile calls of ``step`` (one call each) for ``seconds`` of the
     host clock, at least ``min_calls`` and at most ``max_calls``, then
-    ``sync``."""
+    ``sync``.  ``agree`` turns this process's decision to make another
+    call into the one every rank acts on (rank 0's, on several cards)."""
     on_card = torch.device(device).type == "cuda"
     act = (torch.profiler.ProfilerActivity.CUDA if on_card
            else torch.profiler.ProfilerActivity.CPU)
@@ -77,8 +91,9 @@ def capture(step, sync, seconds: float, device, max_calls: int,
         sync()
         c0 = time.perf_counter()
         calls = 0
-        while calls < max_calls and (calls < min_calls or
-                                     time.perf_counter() - c0 < seconds):
+        while (agree or bool)(
+                calls < max_calls and (calls < min_calls or
+                                       time.perf_counter() - c0 < seconds)):
             step()
             calls += 1
         sync()
