@@ -12,6 +12,11 @@ the last seed position at or before each row (scan.last_marked_index).
 Output capacity is static (default probe capacity x ``max_duplicates``); a
 larger true match count, or a key with more build rows than
 ``max_duplicates``, raises the ``overflow`` flag and truncates.
+
+Spans (``utils/profiling.span``, attribute ``rows`` = P + B): ``join.sort``
+(the operands and their sort), ``join.match`` (run starts, segmented
+fills, build-column gathers, the candidates) and ``join.compact``.
+``sorted_rows`` counts the rows that entered a join's sort.
 """
 
 from __future__ import annotations
@@ -21,9 +26,14 @@ import torch
 from .. import dtypes
 from ..config import DEFAULT_CONFIG, SortConfig
 from ..table import Table
+from ..utils import profiling
 from . import partition
 from . import sort as sort_ops
 from .scan import last_marked_index
+
+# Rows that entered the join's sort (probe and build capacity, padding
+# included), over every join of the process; read as stream.host_reads is.
+sorted_rows = 0
 
 
 def _biased_with_sentinel(table: Table, key: str) -> torch.Tensor:
@@ -42,84 +52,89 @@ def _merge_scan_join(probe: Table, build: Table, key: str,
     (padding included: build valid, build padding, probe valid, probe
     padding within the sentinel run), the same order as the two-key sort.
     Padding rows never match (sentinel keys + validity)."""
+    global sorted_rows
     D = max_duplicates
     P, B = probe.capacity, build.capacity
+    n = P + B
+    sorted_rows += n
     dev = probe.device
-    keys_all = torch.cat([_biased_with_sentinel(build, key),
-                          _biased_with_sentinel(probe, key)])
-    side = torch.cat([torch.zeros(B, dtype=torch.int32, device=dev),
-                      torch.ones(P, dtype=torch.int32, device=dev)])
-    zb = torch.zeros(B, dtype=torch.bool, device=dev)
-    zp = torch.zeros(P, dtype=torch.bool, device=dev)
-    build_valid = torch.cat([build.valid_mask(), zp])
-    probe_valid = torch.cat([zb, probe.valid_mask()])
-
     b_names, p_names = build.column_names, probe.column_names
-    operands = [side, build_valid, probe_valid]
-    for nme in b_names:
-        c = dtypes.as_container(build.columns[nme])
-        operands.append(torch.cat([c, c.new_zeros(P)]))
-    for nme in p_names:
-        c = dtypes.as_container(probe.columns[nme])
-        operands.append(torch.cat([c.new_zeros(B), c]))
-    k_s, out = sort_ops.sort_biased_kv(keys_all, operands, config)
+    with profiling.span("join.sort", rows=n):
+        keys_all = torch.cat([_biased_with_sentinel(build, key),
+                              _biased_with_sentinel(probe, key)])
+        side = torch.cat([torch.zeros(B, dtype=torch.int32, device=dev),
+                          torch.ones(P, dtype=torch.int32, device=dev)])
+        zb = torch.zeros(B, dtype=torch.bool, device=dev)
+        zp = torch.zeros(P, dtype=torch.bool, device=dev)
+        build_valid = torch.cat([build.valid_mask(), zp])
+        probe_valid = torch.cat([zb, probe.valid_mask()])
+
+        operands = [side, build_valid, probe_valid]
+        for nme in b_names:
+            c = dtypes.as_container(build.columns[nme])
+            operands.append(torch.cat([c, c.new_zeros(P)]))
+        for nme in p_names:
+            c = dtypes.as_container(probe.columns[nme])
+            operands.append(torch.cat([c.new_zeros(B), c]))
+        k_s, out = sort_ops.sort_biased_kv(keys_all, operands, config)
     side_s, bval_s, pval_s = out[0], out[1], out[2]
     b_cols_s = out[3:3 + len(b_names)]
     p_cols_s = dict(zip(p_names, out[3 + len(b_names):]))
 
-    n = P + B
-    is_start = torch.ones(n, dtype=torch.bool, device=dev)
-    is_start[1:] = k_s[1:] != k_s[:-1]
-    start = last_marked_index(is_start)
-    is_build = (side_s == 0) & bval_s
-    is_probe_row = (side_s == 1) & pval_s
+    with profiling.span("join.match", rows=n):
+        is_start = torch.ones(n, dtype=torch.bool, device=dev)
+        is_start[1:] = k_s[1:] != k_s[:-1]
+        start = last_marked_index(is_start)
+        is_build = (side_s == 0) & bval_s
+        is_probe_row = (side_s == 1) & pval_s
 
-    # in-run index of each build row: the exclusive build count minus its
-    # value at the run start
-    excl = torch.cumsum(is_build, 0, dtype=torch.int32) - is_build.to(
-        torch.int32)
-    bidx = excl - excl[start]
+        # in-run index of each build row: the exclusive build count minus
+        # its value at the run start
+        excl = torch.cumsum(is_build, 0, dtype=torch.int32) - is_build.to(
+            torch.int32)
+        bidx = excl - excl[start]
 
-    def run_ffill(seed_mask):
-        """Index of the row whose payload reaches each row: the last seed
-        (unique per run) at or before it within its run, else the run
-        start; and whether a seed was found."""
-        src = last_marked_index(seed_mask | is_start)
-        return seed_mask[src], src
+        def run_ffill(seed_mask):
+            """Index of the row whose payload reaches each row: the last
+            seed (unique per run) at or before it within its run, else the
+            run start; and whether a seed was found."""
+            src = last_marked_index(seed_mask | is_start)
+            return seed_mask[src], src
 
-    matched_cols = []
-    for j in range(D):
-        has_j, src_j = run_ffill(is_build & (bidx == j))
-        matched_cols.append((is_probe_row & has_j,
-                             tuple(c[src_j] for c in b_cols_s)))
-    if D < B:
-        has_over, _ = run_ffill(is_build & (bidx == D))
-        dup_overflow = (is_probe_row & has_over).any()
-    else:
-        dup_overflow = torch.zeros((), dtype=torch.bool, device=dev)
+        matched_cols = []
+        for j in range(D):
+            has_j, src_j = run_ffill(is_build & (bidx == j))
+            matched_cols.append((is_probe_row & has_j,
+                                 tuple(c[src_j] for c in b_cols_s)))
+        if D < B:
+            has_over, _ = run_ffill(is_build & (bidx == D))
+            dup_overflow = (is_probe_row & has_over).any()
+        else:
+            dup_overflow = torch.zeros((), dtype=torch.bool, device=dev)
 
-    # ---- emit: (n, D) candidates position-major, compacted to the front
-    def stack(per_j):
-        return torch.stack(tuple(per_j), dim=1).reshape(-1)
+        # ---- emit: (n, D) candidates position-major
+        def stack(per_j):
+            return torch.stack(tuple(per_j), dim=1).reshape(-1)
 
-    matched = stack(m for m, _ in matched_cols)
-    names_out, vals_out, dtypes_out = [], [], []
-    for nme in p_names:
-        names_out.append(nme + suffixes[0])
-        vals_out.append(stack([p_cols_s[nme]] * D))
-        dtypes_out.append(probe.columns[nme].dtype)
-    for i, nme in enumerate(b_names):
-        oname = nme + suffixes[1] if (nme + suffixes[0]) in names_out \
-            else nme
-        names_out.append(oname)
-        vals_out.append(stack(mc[1][i] for mc in matched_cols))
-        dtypes_out.append(build.columns[nme].dtype)
+        matched = stack(m for m, _ in matched_cols)
+        names_out, vals_out, dtypes_out = [], [], []
+        for nme in p_names:
+            names_out.append(nme + suffixes[0])
+            vals_out.append(stack([p_cols_s[nme]] * D))
+            dtypes_out.append(probe.columns[nme].dtype)
+        for i, nme in enumerate(b_names):
+            oname = nme + suffixes[1] if (nme + suffixes[0]) in names_out \
+                else nme
+            names_out.append(oname)
+            vals_out.append(stack(mc[1][i] for mc in matched_cols))
+            dtypes_out.append(build.columns[nme].dtype)
+        n_match = matched.sum(dtype=torch.int32)
 
-    n_match = matched.sum(dtype=torch.int32)
-    packed, _ = partition.compact_mask(matched, tuple(vals_out),
-                                       method="auto", config=config)
-    out_cols = {nm: dtypes.from_container(v[:out_capacity], dt)
-                for nm, v, dt in zip(names_out, packed, dtypes_out)}
+    with profiling.span("join.compact", rows=n):
+        packed, _ = partition.compact_mask(matched, tuple(vals_out),
+                                           method="auto", config=config)
+        out_cols = {nm: dtypes.from_container(v[:out_capacity], dt)
+                    for nm, v, dt in zip(names_out, packed, dtypes_out)}
     stats = {"match_count": n_match,
              "overflow": (n_match > out_capacity) | dup_overflow}
     return Table(out_cols, num_rows=torch.clamp(n_match, max=out_capacity)

@@ -230,6 +230,53 @@ def test_a_span_that_raises_still_closes(spans_off):
     assert profiling.take_spans() == []
 
 
+def _join_query():
+    """A probe of 300 rows (250 valid after the filter) joined with a build
+    of 40 keys: the int64 key of Q3's joins."""
+    g = torch.Generator().manual_seed(3)
+    probe = rtt.Table({"k": torch.randint(0, 60, (300,), generator=g),
+                       "v": torch.arange(300, dtype=torch.int32)})
+    build = rtt.Table({"k": torch.arange(0, 80, 2),
+                       "w": torch.arange(40, dtype=torch.int64) * 7})
+    q = rtt.Query(probe).filter("v", "lt", 250).join(build, on="k")
+    return q.collect().to_numpy(), q.last_stats["join"]
+
+
+@pytest.mark.parametrize("on", [True, False])
+def test_join_spans_and_sorted_rows(spans_off, on):
+    """On, the query's join step holds join.sort, join.match and
+    join.compact, each with rows = probe + build capacity; off, nothing is
+    recorded.  Either way ``join.sorted_rows`` grows by that count."""
+    from radix_sort_tpu_torch.ops import join as join_ops
+
+    before = join_ops.sorted_rows
+    if on:
+        profiling.enable()
+    got, stats = _join_query()
+    profiling.disable()
+    spans = profiling.take_spans()
+    assert join_ops.sorted_rows - before == 300 + 40
+    assert int(stats["match_count"]) == len(got["k"]) > 0
+    assert not bool(stats["overflow"])
+    if not on:
+        assert spans == []
+        return
+    _check_nesting(spans)
+    by = _by_id(spans)
+    (step,) = [s for s in spans if s.name == "query.join"]
+    inner = [s for s in spans if s.parent == step.id]
+    assert [s.name for s in inner] == ["join.sort", "join.match",
+                                       "join.compact"]
+    assert all(s.attrs == {"rows": 340} for s in inner)
+    for s in spans:
+        if s.name == "radix.sort_passes":
+            assert {"join.sort", "join.compact",
+                    "query.filter"} & set(_ancestors(s, by))
+    again, _ = _join_query()  # the spans change nothing of the answer
+    for k, v in got.items():
+        np.testing.assert_array_equal(v, again[k])
+
+
 @pytest.mark.cuda
 def test_spans_share_the_device_trace_clock(spans_off, tmp_path):
     """A kernel, then a span of 2 ms of host work that ends by launching
