@@ -12,12 +12,39 @@ chain on ``.collect()`` through the engine's operators:
 
 Every operator is the port's: compaction by the radix kernels' stable
 pass, sort-based aggregate, sort-merge join, window functions; sorts go
-through the query's ``SortConfig``.  ``collect()`` never reads
-``num_rows`` to the host: ``limit`` clamps it on the device
-(``Table.head``).
+through the query's ``SortConfig``.
+
+Intermediate tables are cut to their valid rows.  A step that changes
+the row count (filter, join, group-by, distinct, top-k) leaves its
+input's capacity, mostly padding after a selective filter or join.
+Before the next step whose work follows the capacity (join, group-by,
+distinct, window, sort, top-k), ``collect()`` reads ``num_rows`` to the
+host once (a join reads its build side's count in the same read) and
+slices every column to ``max(n, 1)`` rows, or to the rows a later
+top-k's ``k`` asks of them through the steps between: views, no copy.  The JAX package never reads a
+count, as XLA needs static shapes; CUDA has dynamic shapes, and one read
+costs a drain of the stream, tens of microseconds against steps that
+take milliseconds over the padding.  A count once read is carried by the
+steps that keep it (select, with_column, sort, window, limit), which
+read nothing again.  The table the ``Query`` was given is never read
+nor cut, so a chain whose count never changed runs as the JAX one does.
+``filter_mask`` and ``with_column`` functions see the cut table.
+
+The result keeps the capacity of the uncut chain, the JAX package's
+(the steps' own rules: a join gives probe capacity x ``max_duplicates``,
+``limit(n)`` ``min(n, capacity)``, ``top_k`` k, any other step its
+input's): after a cut the valid rows lead columns of that capacity
+whose rows past ``num_rows`` are unwritten padding.  ``host_reads`` and
+``rows_cut`` count the reads and the padding rows cut away, over every
+``Query`` of the process; the span ``query.cut`` (attributes ``rows``
+before, ``kept`` after) lies inside its step's span.
 """
 
 from __future__ import annotations
+
+import numbers
+
+import torch
 
 from . import dtypes
 from .config import DEFAULT_CONFIG, SortConfig
@@ -36,6 +63,18 @@ _STEP_SPANS = {step: "query." + step for step in (
     "filter", "filter_mask", "select", "with_column", "group_by", "join",
     "distinct", "top_k", "limit", "window", "sort_by")}
 
+# steps whose row count is known only on the device, and steps whose work
+# follows the capacity, before which the table is cut
+_COUNT_CHANGING = frozenset(("filter", "filter_mask", "join", "group_by",
+                             "distinct", "top_k"))
+_CUT_BEFORE = frozenset(("join", "group_by", "distinct", "window",
+                         "sort_by", "top_k"))
+
+# Reads of row counts to the host and padding rows cut away, over every
+# Query of the process; read as join.sorted_rows is.
+host_reads = 0
+rows_cut = 0
+
 
 def _sort_table(table: Table, key: str, descending: bool = False,
                 config: SortConfig = DEFAULT_CONFIG) -> Table:
@@ -53,6 +92,32 @@ def _sort_table(table: Table, key: str, descending: bool = False,
     _, out = sort_ops.sort_biased_kv(
         bits, tuple(table.columns[n] for n in names), config, width)
     return Table(dict(zip(names, out)), num_rows=table.num_rows)
+
+
+def _widen(table: Table, capacity: int, valid: int | None) -> Table:
+    """``table``'s rows leading columns of ``capacity`` rows: the first
+    ``valid`` rows copied (all of them when the count is not on the host),
+    the rest unwritten."""
+    rows = table.capacity if valid is None else valid
+    cols = {}
+    for k, v in table.columns.items():
+        c = dtypes.as_container(v)
+        out = c.new_empty(capacity)
+        out[:rows] = c[:rows]
+        cols[k] = dtypes.from_container(out, v.dtype)
+    return Table(cols, table.num_rows)
+
+
+def _capacity_after(step: str, args, capacity: int) -> int:
+    """The capacity the uncut chain's step gives an input of
+    ``capacity`` rows."""
+    if step == "join":
+        return capacity * args[2]
+    if step == "top_k":
+        return args[1]
+    if step == "limit":
+        return min(args[0], capacity)
+    return capacity
 
 
 class Query:
@@ -139,15 +204,78 @@ class Query:
     # ---- execution --------------------------------------------------------
     def collect(self) -> Table:
         """Run the chain: one span ``query``, and inside it one span
-        ``query.<step>`` a step (``profiling.span``)."""
+        ``query.<step>`` a step (``profiling.span``), which holds the
+        step's ``query.cut`` where the table is cut before it."""
         cfg = self._config
         t = self._table
+        capacity = t.capacity  # the uncut chain's
+        n = None  # t's num_rows on the host, once read
+        stale = False  # a step since the last read changed the count
         with profiling.span("query", rows=t.capacity,
                             steps=len(self._steps)):
-            for step, args in self._steps:
+            for i, (step, args) in enumerate(self._steps):
                 with profiling.span(_STEP_SPANS[step], rows=t.capacity):
+                    if step in _CUT_BEFORE and (stale or n is not None):
+                        t, n, args = self._cut(t, n, step, args,
+                                               self._cut_floor(i))
+                        stale = False
                     t = self._run_step(t, step, args, cfg)
+                capacity = _capacity_after(step, args, capacity)
+                if step in ("top_k", "limit") and n is not None:
+                    n = min(n, args[1] if step == "top_k" else args[0])
+                elif step in _COUNT_CHANGING:
+                    n, stale = None, True
+            if t.capacity < capacity:
+                t = _widen(t, capacity, n)
         return t
+
+    def _cut_floor(self, i: int) -> int:
+        """The fewest rows a cut before step ``i`` may keep: 1, or the
+        capacity a later top_k's k asks of its input, carried back to step
+        ``i`` through the steps' capacity rules (a join multiplies its
+        probe's by ``max_duplicates``, a top_k sets k, every other step
+        keeps its input's).  A later cut cannot grow the table, so the
+        floor holds up to the top_k."""
+        need = 1
+        for step, args in reversed(self._steps[i:]):
+            if step == "top_k":
+                k = args[1]
+                need = max(1, int(k)) if isinstance(k, numbers.Integral) else 1
+            elif step == "join":
+                need = -(-need // max(1, args[2]))
+        return need
+
+    @staticmethod
+    def _cut(t: Table, n: int | None, step: str, args, floor: int):
+        """``t``, and a join's build table, cut to their valid rows (at
+        least ``floor`` and 1) before ``step``, with one host read of the
+        counts not yet on the host.  Returns the table, its count and the
+        step's arguments."""
+        global host_reads, rows_cut
+        other = args[0] if step == "join" else None
+        if other is None and t.capacity <= max(floor, n or 0):
+            return t, n, args  # nothing to cut: no read
+        before = t.capacity + (0 if other is None else other.capacity)
+        with profiling.span("query.cut", rows=before) as sp:
+            unread = [t.num_rows] if n is None else []
+            if other is not None:
+                unread.append(other.num_rows)
+            if unread:
+                host_reads += 1
+                counts = torch.stack(unread).tolist()
+                if n is None:
+                    n = counts[0]
+            t = t.head(max(n, floor))
+            kept = t.capacity
+            if other is not None:
+                other = other.head(max(counts[-1], 1))
+                kept += other.capacity
+                args = (other,) + tuple(args[1:])
+            rows_cut += before - kept
+            attrs = getattr(sp, "attrs", None)  # None while spans are off
+            if attrs is not None:
+                attrs["kept"] = kept
+        return t, n, args
 
     def _run_step(self, t: Table, step: str, args, cfg) -> Table:
         if step == "filter":

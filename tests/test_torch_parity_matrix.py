@@ -390,7 +390,7 @@ def test_hash_join(dtype):
 WIDE = [np.int64, np.uint64, np.float64]
 WIDE_IDS = ["i64", "u64", "f64"]
 WIDE_ENTRIES = ["sort_kv", "sort_kv_narrow_key", "stable_partition",
-                "hash_aggregate", "distinct", "query"]
+                "hash_aggregate", "distinct", "query", "query_uncut"]
 
 
 def _wide_payload(d, n=N, seed=27):
@@ -463,12 +463,31 @@ def test_wide_payloads(dtype, entry):
         g = got.to_numpy()
         np.testing.assert_array_equal(g["row"], first)
         _bits_equal(g["p"], pay[first], "payload of each first row")
+    elif entry == "query_uncut":
+        # no step changes the count, so nothing is cut: every row of the
+        # capacity, padding included, is the JAX package's
+        jt, tt = _tables({"k": keys, "p": pay, "row": row})
+
+        def chain(q):
+            return q.with_column("p2", lambda t: t["p"]).sort_by("k")
+
+        want = jax.jit(lambda t: chain(JQuery(t)).collect())(jt)
+        got = chain(Query(tt)).collect()
+        _capacity_equal(got, want)
+        order = golden.oracle_argsort(keys[:NUM_ROWS])
+        g = got.to_numpy()
+        np.testing.assert_array_equal(g["row"], order)
+        _bits_equal(g["p2"], pay[order], "payload order")
     else:
         jt, tt = _tables({"k": keys, "p": pay, "row": row})
         want = jax.jit(lambda t: JQuery(t).filter("row", "ge", 3).sort_by(
             "k").collect())(jt)
         got = Query(tt).filter("row", "ge", 3).sort_by("k").collect()
-        _capacity_equal(got, want)
+        # the sort runs on the filter's valid rows, cut from its capacity:
+        # the result has the JAX capacity, and its rows past num_rows are
+        # unwritten padding (Query's module docstring)
+        assert got.capacity == want.capacity
+        _valid_rows_equal(got, want)
         kept = np.arange(3, NUM_ROWS)
         order = kept[golden.oracle_argsort(keys[kept])]
         g = got.to_numpy()

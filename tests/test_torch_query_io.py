@@ -18,6 +18,7 @@ from radix_sort_tpu import io as jio
 from radix_sort_tpu.query import Query as JQuery
 from radix_sort_tpu.table import Table as JTable
 from radix_sort_tpu_torch import Query, SortConfig, dtypes as tdt, io as tio
+from radix_sort_tpu_torch import query as tquery
 from radix_sort_tpu_torch.table import Table
 
 
@@ -211,6 +212,198 @@ def test_collect_on_torch_sort_engine_matches():
     b = build(Query(tt, SortConfig(engine="torch_sort"))).collect()
     assert_tables_equal(a, b)
     assert_tables_equal(a, jax.jit(lambda t: build(JQuery(t)).collect())(jt))
+
+
+# ---- intermediate tables cut to their valid rows ---------------------------
+
+def _cut_cols():
+    """A probe of 1000 rows (950 valid) and a build of 50 unique int64
+    keys (40 valid), whose padding rows hold keys the probe has: they must
+    not match."""
+    rng = np.random.default_rng(40)
+    probe = {"k": rng.integers(0, 80, 1000).astype(np.int64),
+             "x": rng.integers(0, 10, 1000).astype(np.int32),
+             "w": rng.integers(0, 10**6, 1000).astype(np.int64)}
+    build = {"k": rng.permutation(80)[:50].astype(np.int64),
+             "d": rng.integers(0, 3000, 50).astype(np.int32)}
+    return probe, build
+
+
+def _cut_counts(keep, build_rows=40):
+    """Valid rows after a filter of the probe's valid rows by ``keep``,
+    after its join with the build's first ``build_rows`` rows, and the
+    join's distinct keys."""
+    probe, build = _cut_cols()
+    k = probe["k"][:950][keep(probe)[:950]]
+    joined = k[np.isin(k, build["k"][:build_rows])]
+    return len(k), len(joined), len(np.unique(joined))
+
+
+def _q3_shape(q, build):
+    return (q.filter("x", "lt", 6)
+            .join(build, on="k")
+            .with_column("rev", lambda t: t["w"] * (100 - t["x"]))
+            .group_by("k", revenue=("sum", "rev"), d=("min", "d"),
+                      lo=("min", "x"))
+            .sort_by("revenue", "d", descending=(True, False))
+            .limit(10))
+
+
+def _q3_cut():
+    n, j, g = _cut_counts(lambda p: p["x"] < 6)
+    # reads at the join (probe and build), the group-by, the first sort
+    return 3, (1000 - n) + (50 - 40) + (n - j) + (j - g)
+
+
+def _q1_shape(q, build):
+    return (q.filter("x", "ge", 2)
+            .with_column("wx", lambda t: t["w"] * t["x"])
+            .group_by("x", s=("sum", "wx"), m=("mean", "w"),
+                      n=("count", None))
+            .sort_by("x"))
+
+
+def _q1_cut():
+    n, _, _ = _cut_counts(lambda p: p["x"] >= 2)
+    return 2, (1000 - n) + (n - 8)  # the groups: x in 2..9
+
+
+def _empty_filter(q, build):
+    return (q.filter("x", "ge", 10).join(build, on="k")
+            .group_by("k", n=("count", None)).sort_by("k"))
+
+
+def _empty_build(q, build):
+    return (q.filter("x", "lt", 6).join(build, on="k")
+            .group_by("k", n=("count", None), lo=("min", "d")))
+
+
+def _empty_build_cut():
+    n, _, _ = _cut_counts(lambda p: p["x"] < 6)
+    return 2, (1000 - n) + (50 - 1) + (n - 1)
+
+
+def _few_for_top_k(q, build):
+    return q.filter("w", "lt", 5000).top_k("w", 25).sort_by("k")
+
+
+def _few_for_top_k_cut():
+    n, _, _ = _cut_counts(lambda p: p["w"] < 5000)
+    assert 0 < n < 25
+    # one read, at the top-k (cut to its k); the sort cuts to the count
+    # the top-k carried
+    return 1, (1000 - 25) + (25 - n)
+
+
+def _few_then_top_k(step):
+    """A filter that keeps fewer than k rows, ``step``, then a top-k of
+    25: the first cut keeps 25 rows, which the later steps need."""
+    return lambda q, build: step(q.filter("w", "lt", 5000), build)
+
+
+def _group_by_top_k(q, build):
+    return q.group_by("k", s=("sum", "w")).top_k("s", 25)
+
+
+def _join_top_k(q, build):
+    return q.join(build, on="k").top_k("w", 25)
+
+
+def _distinct_top_k(q, build):
+    return q.distinct("k").top_k("k", 25, largest=False)
+
+
+def _join_sort_top_k(q, build):
+    return (q.join(build, on="k", max_duplicates=2).sort_by("w")
+            .top_k("w", 25))
+
+
+def _join_sort_top_k_cut():
+    n, _, _ = _cut_counts(lambda p: p["w"] < 5000)
+    probe = max(n, 13)  # 2 x 13 join rows hold the top-k's 25
+    assert 2 * probe > 25
+    # reads at the join (probe and build) and the sort; none at the top-k
+    return 2, (1000 - probe) + (50 - 40) + (2 * probe - 25)
+
+
+def _distinct_limit(q, build):
+    return q.filter("x", "lt", 6).distinct("k").limit(7)
+
+
+def _window(q, build):
+    return (q.filter("x", "lt", 6)
+            .window("x", "w", rn=("row_number",), cs=("cum_sum", "w")))
+
+
+def _one_filter_cut():
+    n, _, _ = _cut_counts(lambda p: p["x"] < 6)
+    return 1, 1000 - n
+
+
+# (chain, build rows, expected (host reads, rows cut))
+CUT_CASES = {
+    "q3_shape": (_q3_shape, 40, _q3_cut),
+    "q1_shape": (_q1_shape, 40, _q1_cut),
+    # one read, at the join: the tables after it hold one row, the floor
+    "empty_filter": (_empty_filter, 40,
+                     lambda: (1, (1000 - 1) + (50 - 40))),
+    "empty_build": (_empty_build, 0, _empty_build_cut),
+    "top_k_over_few_rows": (_few_for_top_k, 40, _few_for_top_k_cut),
+    # one read, at the step after the filter; the top-k reads nothing
+    "group_by_then_top_k": (_few_then_top_k(_group_by_top_k), 40,
+                            lambda: (1, 1000 - 25)),
+    "join_then_top_k": (_few_then_top_k(_join_top_k), 40,
+                        lambda: (1, (1000 - 25) + (50 - 40))),
+    "distinct_then_top_k": (_few_then_top_k(_distinct_top_k), 40,
+                            lambda: (1, 1000 - 25)),
+    "join_sort_then_top_k": (_few_then_top_k(_join_sort_top_k), 40,
+                             _join_sort_top_k_cut),
+    "distinct_limit": (_distinct_limit, 40, _one_filter_cut),
+    "window": (_window, 40, _one_filter_cut),
+    "single_sort_by": (lambda q, b: q.sort_by("k", descending=True), 40,
+                       lambda: (0, 0)),
+    "single_join": (lambda q, b: q.join(b, on="k"), 40, lambda: (0, 0)),
+}
+
+
+@pytest.mark.parametrize("case", list(CUT_CASES))
+def test_cut_chains_match_jax(case):
+    """A chain whose count changes runs each later join, group-by, sort,
+    distinct, window and top-k over the valid rows, with the host reads
+    and cut rows the counters show; the result equals the JAX package's:
+    ``num_rows``, the uncut chain's capacity and every valid row.  A
+    single-step chain reads and cuts nothing."""
+    chain, build_rows, expect = CUT_CASES[case]
+    probe, build = _cut_cols()
+    jt, tt = both(probe, num_rows=950)
+    jb, tb = both(build, num_rows=build_rows)
+    reads, cut = tquery.host_reads, tquery.rows_cut
+    got = chain(Query(tt), tb).collect()
+    assert (tquery.host_reads - reads, tquery.rows_cut - cut) == expect()
+    want = jax.jit(lambda t, b: chain(JQuery(t), b).collect())(jt, jb)
+    assert_tables_equal(got, want)
+
+
+def test_cut_join_keeps_its_statistics():
+    """The join of the Q3-shaped chain over its cut operands gives the
+    JAX join's match count and flag."""
+    probe, build = _cut_cols()
+    jt, tt = both(probe, num_rows=950)
+    jb, tb = both(build, num_rows=40)
+    q = Query(tt).filter("x", "lt", 6).join(tb, on="k")
+    q.collect()
+    jq_stats = jax.jit(lambda t, b: _join_stats(JQuery(t).filter(
+        "x", "lt", 6).join(b, on="k")))(jt, jb)
+    _, joined, _ = _cut_counts(lambda p: p["x"] < 6)
+    assert int(q.last_stats["join"]["match_count"]) == joined == int(
+        jq_stats["match_count"])
+    assert not bool(q.last_stats["join"]["overflow"])
+    assert not bool(jq_stats["overflow"])
+
+
+def _join_stats(jq):
+    jq.collect()
+    return jq.last_stats["join"]
 
 
 def _io_cols():

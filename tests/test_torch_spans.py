@@ -152,9 +152,16 @@ def test_query_spans_name_each_step(spans_off, clock_reads):
                                     "query.sort_by"), (s, step)
     names = {s.name for s in spans}
     assert names == {"query", "query.filter", "query.with_column",
-                     "query.group_by", "query.sort_by", "radix.sort_passes",
-                     "planes.split", "planes.join", "to_host",
-                     "to_host.wait"}
+                     "query.group_by", "query.sort_by", "query.cut",
+                     "radix.sort_passes", "planes.split", "planes.join",
+                     "to_host", "to_host.wait"}
+    # the filter's and the group-by's tables are cut to their valid rows
+    # inside the step that follows each
+    kept = int((table["l_shipdate"] <= 10471).sum())
+    cuts = [(by[s.parent].name, s.attrs) for s in spans
+            if s.name == "query.cut"]
+    assert cuts == [("query.group_by", {"rows": 3000, "kept": kept}),
+                    ("query.sort_by", {"rows": kept, "kept": 6})]
     # the spans change nothing of the answer
     np.testing.assert_array_equal(got["sum_qty"], _q1(table)["sum_qty"])
 
@@ -244,9 +251,11 @@ def _join_query():
 
 @pytest.mark.parametrize("on", [True, False])
 def test_join_spans_and_sorted_rows(spans_off, on):
-    """On, the query's join step holds join.sort, join.match and
-    join.compact, each with rows = probe + build capacity; off, nothing is
-    recorded.  Either way ``join.sorted_rows`` grows by that count."""
+    """On, the query's join step holds query.cut (the filtered probe cut
+    to its 250 valid rows beside the 40 of the build), then join.sort,
+    join.match and join.compact, each with rows = the cut probe + build
+    rows; off, nothing is recorded.  Either way ``join.sorted_rows`` grows
+    by that count."""
     from radix_sort_tpu_torch.ops import join as join_ops
 
     before = join_ops.sorted_rows
@@ -255,7 +264,7 @@ def test_join_spans_and_sorted_rows(spans_off, on):
     got, stats = _join_query()
     profiling.disable()
     spans = profiling.take_spans()
-    assert join_ops.sorted_rows - before == 300 + 40
+    assert join_ops.sorted_rows - before == 250 + 40
     assert int(stats["match_count"]) == len(got["k"]) > 0
     assert not bool(stats["overflow"])
     if not on:
@@ -265,9 +274,10 @@ def test_join_spans_and_sorted_rows(spans_off, on):
     by = _by_id(spans)
     (step,) = [s for s in spans if s.name == "query.join"]
     inner = [s for s in spans if s.parent == step.id]
-    assert [s.name for s in inner] == ["join.sort", "join.match",
-                                       "join.compact"]
-    assert all(s.attrs == {"rows": 340} for s in inner)
+    assert [s.name for s in inner] == ["query.cut", "join.sort",
+                                       "join.match", "join.compact"]
+    assert inner[0].attrs == {"rows": 300 + 40, "kept": 250 + 40}
+    assert all(s.attrs == {"rows": 290} for s in inner[1:])
     for s in spans:
         if s.name == "radix.sort_passes":
             assert {"join.sort", "join.compact",
