@@ -852,7 +852,7 @@ def sort_args(rt, keys, npay: int, dev):
     pays = tuple(iota * (2 * i + 1) for i in range(npay))
     if d.itemsize < 4:
         return (rt.dtypes.as_container(keys),), (d.itemsize,), pays, d.kind
-    kp = stream._key_word_planes(rt.dtypes.to_sortable(keys))
+    kp = stream.key_word_planes(rt.dtypes.to_sortable(keys))
     return kp, (4,) * len(kp), pays, "u"
 
 

@@ -103,7 +103,7 @@ class SortTask:
         stays 0: the reference's paste kernel is folded into the scan.
         Diagnostic numbers: the sort itself skips degenerate passes."""
         cfg = self.config
-        planes = stream._key_word_planes(dtypes.to_sortable(self._dev_keys))
+        planes = stream.key_word_planes(dtypes.to_sortable(self._dev_keys))
         if self.with_values:
             planes += (self._dev_vals,)
         digit = planes[0]

@@ -236,8 +236,7 @@ def _sorted_rows(table: Table, key: str, needed_cols, config: SortConfig):
     1-byte key), where the sentinel's digits are the width's maximum, as
     the JAX package's sentinel is in the key's own container."""
     valid_in = table.valid_mask()
-    ku = torch.where(valid_in, dtypes.to_sortable(table[key]),
-                     dtypes.SENTINEL_BITS)
+    ku = sort_ops.padded_key(table[key], valid_in)
     names = tuple(sorted(needed_cols))
     ku_sorted, cols = sort_ops.sort_biased_kv(
         ku, tuple(table[c] for c in names), config,
@@ -352,8 +351,7 @@ def distinct(table: Table, key: str,
     if cap == 0:
         return Table(dict(table.columns), num_rows=0)
     valid = table.valid_mask()
-    ku = torch.where(valid, dtypes.to_sortable(table[key]),
-                     dtypes.SENTINEL_BITS)
+    ku = sort_ops.padded_key(table[key], valid)
     names = table.column_names
     ku_sorted, cols_sorted = sort_ops.sort_biased_kv(
         ku, tuple(table.columns[n] for n in names), config,

@@ -109,12 +109,12 @@ def sort_chunked_biased(keys_bits: torch.Tensor, payloads=(), *,
     dest = _chunk_destinations(keys_bits,
                                _order_stat_splitters(smp_sorted, K), K)
 
-    kplanes = stream._key_word_planes(keys_bits)
+    kplanes = stream.key_word_planes(keys_bits)
     nk = len(kplanes)
     parted, counts = stream.partition_planes(dest, kplanes + pay_planes, K,
                                              tile, threads)
     # new storage, never the caller's: the chunk sorts below write in it
-    keys_out = stream._join_key_word_planes(parted[:nk], keys_bits.dtype)
+    keys_out = stream.join_key_word_planes(parted[:nk], keys_bits.dtype)
     pays_out = parted[nk:]
     stream.host_reads += 1  # the chunk sizes
     sizes = counts.tolist()

@@ -33,7 +33,7 @@ from typing import NamedTuple
 import torch
 
 from .. import _build, dtypes
-from ..config import DEFAULT_CONFIG, SortConfig
+from ..config import DEFAULT_CONFIG
 from ..status import EngineError, OperationStatus
 from ..utils import profiling
 from . import ranking
@@ -854,41 +854,6 @@ def _sort_passes(key_planes, passes, planes, radix, tile, threads, kind,
     # every launch group once a pass: the look-back one, then base-table
     onesweep_pass.wide_launches += looked * _wide_groups(ins)
     return outs, ws[:P * radix].view(P, radix)
-
-
-def sort_biased(keys_bits: torch.Tensor, payloads,
-                config: SortConfig = DEFAULT_CONFIG,
-                total_bits: int | None = None):
-    """Stable LSD radix sort of sortable key bits (int32/int64 containers,
-    unsigned order; dtypes.to_sortable) with a tuple of payload tensors that
-    ride the same permutation: one pass_histograms launch, then one
-    onesweep_pass a pass that one digit does not fill, over int32 key word
-    planes and payload planes of 4 or 8 bytes (ops/stream.py);
-    ``total_bits`` (default: the container's width) sets the passes."""
-    from . import stream
-
-    planes, specs = stream.payloads_to_planes(payloads)
-    keys_out, planes_out = stream.sort_planes(
-        keys_bits, planes, radix=config.radix, tile=config.tile_elems,
-        threads=config.threads_per_cta, total_bits=total_bits)
-    return keys_out, stream.planes_to_payloads(planes_out, specs)
-
-
-def sort_narrow(keys: torch.Tensor, kind: str, payloads,
-                config: SortConfig = DEFAULT_CONFIG):
-    """Stable LSD radix sort of 1- or 2-byte keys given as the caller's own
-    bits (a tensor of NARROW_KEY_DTYPES) of ``kind`` ("u", "i", "f"), with
-    a tuple of payload tensors: the narrow counterpart of ``sort_biased``.
-    The kernels take each digit from the keys' sortable image in registers
-    and move the keys' bits, so no transformed or widened key plane is
-    made.  Returns (sorted keys of ``keys``' dtype, payloads)."""
-    from . import stream
-
-    planes, specs = stream.payloads_to_planes(payloads)
-    keys_out, planes_out = stream.sort_narrow_planes(
-        keys, kind, planes, radix=config.radix, tile=config.tile_elems,
-        threads=config.threads_per_cta)
-    return keys_out, stream.planes_to_payloads(planes_out, specs)
 
 
 _COUNTED = (digit_histogram, exclusive_scan, rank_scatter, pass_histograms,

@@ -36,11 +36,6 @@ from .scan import last_marked_index
 sorted_rows = 0
 
 
-def _biased_with_sentinel(table: Table, key: str) -> torch.Tensor:
-    return torch.where(table.valid_mask(), dtypes.to_sortable(table[key]),
-                       dtypes.SENTINEL_BITS)
-
-
 def _merge_scan_join(probe: Table, build: Table, key: str,
                      out_capacity: int, suffixes, max_duplicates: int = 1,
                      config: SortConfig = DEFAULT_CONFIG):
@@ -60,8 +55,9 @@ def _merge_scan_join(probe: Table, build: Table, key: str,
     dev = probe.device
     b_names, p_names = build.column_names, probe.column_names
     with profiling.span("join.sort", rows=n):
-        keys_all = torch.cat([_biased_with_sentinel(build, key),
-                              _biased_with_sentinel(probe, key)])
+        keys_all = torch.cat([
+            sort_ops.padded_key(build[key], build.valid_mask()),
+            sort_ops.padded_key(probe[key], probe.valid_mask())])
         side = torch.cat([torch.zeros(B, dtype=torch.int32, device=dev),
                           torch.ones(P, dtype=torch.int32, device=dev)])
         zb = torch.zeros(B, dtype=torch.bool, device=dev)

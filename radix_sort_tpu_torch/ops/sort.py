@@ -6,13 +6,16 @@ containers whose unsigned order is the key order), so every key type shares
 one code path, and come back to the caller's dtype at the end.  1- and
 2-byte keys under ``radix`` and ``merge`` are the exception: the kernels
 take the caller's bits at their own width and the image in registers
-(``cuda_radix.sort_narrow``), so no transform runs and no int32 key plane
-is made.
+(``stream.sort_narrow``), so no transform runs and no int32 key plane
+is made.  The operators' sorts of a table by one column take their key
+from :func:`padded_key`: the sortable image on valid rows, the sentinel on
+padding, so padding sorts last.
 
 Engines:
-  - ``radix`` (= ``auto``): the LSD radix passes of ops/cuda_radix.py.  On a
-    CUDA tensor every pass runs the CUDA kernels; on a CPU tensor it runs
-    their plain torch versions.  Stable as it stands, so the JAX package's
+  - ``radix`` (= ``auto``): the LSD radix passes of ops/cuda_radix.py,
+    through the plane format of ops/stream.py.  On a CUDA tensor every
+    pass runs the CUDA kernels; on a CPU tensor it runs their plain torch
+    versions.  Stable as it stands, so the JAX package's
     two-key trick for an unstable network has no counterpart.
   - ``merge``: the JAX package's ``pallas_merge`` engine, the tile sort and
     merge levels of ops/cuda_merge.py, for key-only sorts of 32-bit keys
@@ -45,7 +48,7 @@ from .. import dtypes
 from ..config import DEFAULT_CONFIG, SortConfig
 from ..status import EngineError, OperationStatus
 from ..utils import profiling
-from . import chunked_sort, cuda_merge, cuda_radix
+from . import chunked_sort, cuda_merge, stream
 
 ENGINES = ("auto", "radix", "merge", "torch_sort", "chunked")
 # JAX engine name -> the port's engine that does the same work
@@ -84,11 +87,25 @@ def sort_biased_kv(keys_bits: torch.Tensor, payloads,
     if engine == "merge" and not payloads and bits == 32:
         return cuda_merge.merge_sort_bits(keys_bits), ()
     if engine in ("radix", "merge"):
-        return cuda_radix.sort_biased(keys_bits, payloads, config, total_bits)
+        return stream.sort_biased(keys_bits, payloads, config, total_bits)
     if engine == "chunked":
         return chunked_sort.sort_chunked_biased(
             keys_bits, payloads, total_bits=total_bits, config=config)
     return _torch_sort_engine(keys_bits, payloads)
+
+
+def padded_key(col: torch.Tensor, valid: torch.Tensor,
+               descending: bool = False) -> torch.Tensor:
+    """The sort key of a table's column ``col`` whose real rows are
+    ``valid`` (``Table.valid_mask()``, which the caller already holds):
+    the sortable image (``dtypes.to_sortable``), complemented within the
+    key's width when ``descending``, on valid rows and
+    ``dtypes.SENTINEL_BITS`` on padding, so a stable sort puts padding
+    last, after every real row of the sentinel's value."""
+    image = dtypes.to_sortable(col)
+    if descending:
+        image = dtypes.complement(image, dtypes.key_bits(col.dtype))
+    return torch.where(valid, image, dtypes.SENTINEL_BITS)
 
 
 def _sort_impl(keys: torch.Tensor, payloads, config: SortConfig):
@@ -100,8 +117,8 @@ def _sort_impl(keys: torch.Tensor, payloads, config: SortConfig):
                                                               "merge"):
         # the kernels take the caller's bits at their own width and the
         # image in registers: no transform, no int32 key plane
-        ko, pls = cuda_radix.sort_narrow(dtypes.as_container(keys), d.kind,
-                                         tuple(payloads), config)
+        ko, pls = stream.sort_narrow(dtypes.as_container(keys), d.kind,
+                                     tuple(payloads), config)
         return dtypes.from_container(ko, keys.dtype), pls
     ku, pls = sort_biased_kv(dtypes.to_sortable(keys), payloads, config,
                              dtypes.key_bits(keys.dtype))

@@ -1,17 +1,23 @@
-"""Multi-plane stable reorder: the radix sort and the one-pass partition.
+"""The plane format and the multi-plane stable reorder: the radix sort and
+the one-pass partition.
 
-Port of ``radix_sort_tpu/ops/pallas_stream.py``.  Keys travel as int32
-word planes: a 4-byte key is one plane, an 8-byte key a (lo, hi) pair
-(``x.view(torch.int32).reshape(n, 2)``).  A 1- or 2-byte key of the sort
-entry points is the exception: it stays the caller's bits at its own
-width, and the kernels take its digits from its sortable image
-(``sort_narrow_planes``).  A payload column travels at its own width where
-it is 4 or 8 bytes, as a view of its bits (int32, or int64 that the pass
-kernel moves 8 bytes at a time), and a narrower one is widened to one
-int32 plane.  The distributed layer's exchange packs int32 word planes for
-its collectives, so it asks for 8-byte payloads as (lo, hi) word pairs
-(``payloads_to_planes(..., words=True)``).  A sort is
-one ``pass_histograms`` launch over the key word planes and one
+Port of ``radix_sort_tpu/ops/pallas_stream.py``.  This module is the one
+owner of how a column rides the radix pass; the kernels (ops/cuda_radix.py)
+take planes and know nothing of columns.
+
+- A key travels as int32 word planes (:func:`key_word_planes`): a 4-byte
+  key is one plane, an 8-byte key a (lo, hi) pair
+  (``x.view(torch.int32).reshape(n, 2)``).  A 1- or 2-byte key of the sort
+  entry points is the exception: it stays the caller's bits at its own
+  width, and the kernels take its digits from its sortable image
+  (:func:`sort_narrow`).
+- A payload column travels at its own width where it is 4 or 8 bytes, as
+  a view of its bits (int32, or int64 that the pass kernel moves 8 bytes
+  at a time), and a narrower one is widened to one int32 plane
+  (:func:`payloads_to_planes`).  The distributed layer's exchange moves
+  these planes as they are.
+
+A sort is one ``pass_histograms`` launch over the key planes and one
 ``onesweep_pass`` launch for every pass, moving every plane by the digit
 of one of them, all enqueued on a card by one call into the kernel
 library (``cuda_radix.sort_passes``).  Each launch decides on the card,
@@ -32,7 +38,7 @@ from __future__ import annotations
 import torch
 
 from .. import dtypes
-from ..config import DEFAULT_CONFIG
+from ..config import DEFAULT_CONFIG, SortConfig
 from ..utils import profiling
 from . import cuda_radix as cr
 
@@ -78,7 +84,7 @@ def _sort_planes(planes, passes, radix: int, tile: int,
     return outs
 
 
-def _key_word_planes(keys_bits: torch.Tensor):
+def key_word_planes(keys_bits: torch.Tensor):
     """Split sortable key bits (int32 or int64 container) into contiguous
     int32 word planes in LSD order: one for 32-bit keys, (lo, hi) for
     64-bit keys.  One span ``planes.split``."""
@@ -89,8 +95,8 @@ def _key_word_planes(keys_bits: torch.Tensor):
         return (words[:, 0].contiguous(), words[:, 1].contiguous())
 
 
-def _join_key_word_planes(word_planes, dtype: torch.dtype) -> torch.Tensor:
-    """Inverse of :func:`_key_word_planes` into the ``dtype`` container.
+def join_key_word_planes(word_planes, dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of :func:`key_word_planes` into the ``dtype`` container.
     One span ``planes.join``."""
     with profiling.span("planes.join",
                         bytes=sum(p.nbytes for p in word_planes)):
@@ -112,7 +118,7 @@ def sort_planes(keys_bits: torch.Tensor, payload_planes=(), radix: int = 256,
     payload_planes = tuple(payload_planes)
     if n == 0:
         return keys_bits.clone(), _empty_like_all(payload_planes)
-    kplanes = _key_word_planes(keys_bits)
+    kplanes = key_word_planes(keys_bits)
     nk = len(kplanes)
     bits_per = radix.bit_length() - 1
     kbits = 8 * keys_bits.element_size() if total_bits is None else total_bits
@@ -120,7 +126,7 @@ def sort_planes(keys_bits: torch.Tensor, payload_planes=(), radix: int = 256,
                    if kbits > 32 * w)
     out = _sort_planes(kplanes + payload_planes, passes, radix, tile,
                        threads)
-    return _join_key_word_planes(out[:nk], keys_bits.dtype), out[nk:]
+    return join_key_word_planes(out[:nk], keys_bits.dtype), out[nk:]
 
 
 def sort_narrow_planes(keys: torch.Tensor, kind: str, payload_planes=(),
@@ -184,14 +190,12 @@ def bucket_counts(ids: torch.Tensor, num_buckets: int) -> torch.Tensor:
                                torch.ones_like(ids, dtype=torch.int32))
 
 
-def payloads_to_planes(payloads, words: bool = False):
+def payloads_to_planes(payloads):
     """Map 1-D payload tensors to planes: 4-byte dtypes view as one int32
     plane, 8-byte dtypes as one int64 plane (their bits: no copy of a
     contiguous column), narrower dtypes widen to one int32 plane (a 2-byte
-    float by its bits).  ``words``: 8-byte dtypes split into (lo, hi) int32
-    word planes instead, the layout the distributed exchange packs.
-    Returns (planes, specs) for :func:`planes_to_payloads`.  One span
-    ``planes.split``."""
+    float by its bits).  Returns (planes, specs) for
+    :func:`planes_to_payloads`.  One span ``planes.split``."""
     with profiling.span("planes.split",
                         bytes=sum(p.nbytes for p in payloads)):
         planes, specs = [], []
@@ -199,8 +203,6 @@ def payloads_to_planes(payloads, words: bool = False):
             c = dtypes.as_container(p).contiguous()
             if c.dtype.itemsize == 4:
                 planes.append(c.view(torch.int32))
-            elif c.dtype.itemsize == 8 and words:
-                planes += list(_key_word_planes(c.view(torch.int64)))
             elif c.dtype.itemsize == 8:
                 planes.append(c.view(torch.int64))
             else:
@@ -212,25 +214,50 @@ def payloads_to_planes(payloads, words: bool = False):
 
 
 def planes_to_payloads(planes, specs):
-    """Inverse of :func:`payloads_to_planes`, with or without ``words``: a
-    payload whose plane has its width comes back as a view of the plane, a
-    word pair is interleaved back, a widened payload narrowed.  One span
-    ``planes.join``."""
+    """Inverse of :func:`payloads_to_planes`: a payload whose plane has its
+    width comes back as a view of the plane, a widened payload narrowed.
+    One span ``planes.join``."""
     with profiling.span("planes.join", bytes=sum(p.nbytes for p in planes)):
-        out, i = [], 0
-        for dtype, container in specs:
-            if container.itemsize == 4 or (container.itemsize == 8 and
-                                           planes[i].element_size() == 8):
-                c = planes[i].view(container)
-                i += 1
-            elif container.itemsize == 8:
-                c = _join_key_word_planes(planes[i:i + 2],
-                                          torch.int64).view(container)
-                i += 2
+        out = []
+        for plane, (dtype, container) in zip(planes, specs):
+            if container.itemsize >= 4:
+                c = plane.view(container)
             else:
-                c = planes[i].to(container)
+                c = plane.to(container)
                 if dtype.is_floating_point:
                     c = c.view(dtype)
-                i += 1
             out.append(dtypes.from_container(c, dtype))
         return tuple(out)
+
+
+def sort_biased(keys_bits: torch.Tensor, payloads,
+                config: SortConfig = DEFAULT_CONFIG,
+                total_bits: int | None = None):
+    """Stable LSD radix sort of sortable key bits (int32/int64 containers,
+    unsigned order; dtypes.to_sortable) with a tuple of payload tensors
+    that ride the same permutation: the key's word planes and the payload
+    planes through :func:`sort_planes`, which launches every pass; a
+    pass's CTAs return at once on the card where one digit fills it.
+    ``total_bits`` (default: the container's width) sets the passes.
+    Returns (sorted key bits, payloads)."""
+    planes, specs = payloads_to_planes(payloads)
+    keys_out, planes_out = sort_planes(
+        keys_bits, planes, radix=config.radix, tile=config.tile_elems,
+        threads=config.threads_per_cta, total_bits=total_bits)
+    return keys_out, planes_to_payloads(planes_out, specs)
+
+
+def sort_narrow(keys: torch.Tensor, kind: str, payloads,
+                config: SortConfig = DEFAULT_CONFIG):
+    """Stable LSD radix sort of 1- or 2-byte keys given as the caller's own
+    bits (a tensor of ``cuda_radix.NARROW_KEY_DTYPES``) of ``kind`` ("u",
+    "i", "f"), with a tuple of payload tensors: the narrow counterpart of
+    :func:`sort_biased`.  The kernels take each digit from the keys'
+    sortable image in registers and move the keys' bits, so no transformed
+    or widened key plane is made.  Returns (sorted keys of ``keys``' dtype,
+    payloads)."""
+    planes, specs = payloads_to_planes(payloads)
+    keys_out, planes_out = sort_narrow_planes(
+        keys, kind, planes, radix=config.radix, tile=config.tile_elems,
+        threads=config.threads_per_cta)
+    return keys_out, planes_to_payloads(planes_out, specs)

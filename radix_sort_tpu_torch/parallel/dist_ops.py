@@ -50,21 +50,28 @@ class ShardedTable:
 
 
 def _gather_planes(planes, rows: int, mesh, counts=None):
-    """Every rank's first ``rows`` rows of its int32 planes, in rank
-    order, as planes: one all_gather of a (planes, longest) block, after
-    one all_gather of the row counts and a host read when ``counts``
-    (every rank's ``rows``) is not given."""
+    """Every rank's first ``rows`` rows of its int32 or int64 planes, in
+    rank order, as planes: one all_gather of an int32 block of
+    (words a row, longest) in which plane i takes its words' rows as its
+    int32 view, after one all_gather of the row counts and a host read
+    when ``counts`` (every rank's ``rows``) is not given."""
     dev = mesh.device
     if counts is None:
         counts = exchange.read_host(mesh_lib.all_gather(torch.tensor(
             [rows], dtype=torch.int64, device=dev), mesh)[:, 0])
-    block = torch.zeros((len(planes), max(counts)), dtype=torch.int32,
-                        device=dev)
-    for i, p in enumerate(planes):
-        block[i, :rows] = p[:rows]
-    allb = mesh_lib.all_gather(block, mesh)             # (D, planes, top)
-    return tuple(torch.cat([allb[r, i, :c] for r, c in enumerate(counts)])
-                 for i in range(len(planes)))
+    top = max(counts)
+    block = torch.zeros((exchange.words_per_row(planes), top),
+                        dtype=torch.int32, device=dev)
+    slots, row = [], 0  # (first word, words a row, dtype) of each plane
+    for p in planes:
+        w = p.element_size() // 4
+        block[row:row + w].view(-1)[:rows * w] = p[:rows].view(torch.int32)
+        slots.append((row * top, w, p.dtype))
+        row += w
+    allb = mesh_lib.all_gather(block, mesh).view(len(counts), -1)
+    return tuple(torch.cat([allb[r, at:at + c * w]
+                            for r, c in enumerate(counts)]).view(dtype)
+                 for at, w, dtype in slots)
 
 
 def gather_rows(columns: Mapping, num_rows: int, mesh) -> dict:
@@ -72,7 +79,7 @@ def gather_rows(columns: Mapping, num_rows: int, mesh) -> dict:
     order (every rank calls it and gets them all)."""
     names = sorted(columns)
     planes, specs = stream.payloads_to_planes(
-        tuple(columns[n][:num_rows] for n in names), words=True)
+        tuple(columns[n][:num_rows] for n in names))
     cols = stream.planes_to_payloads(
         _gather_planes(planes, num_rows, mesh), specs)
     return {n: dtypes.tensor_to_numpy(c) for n, c in zip(names, cols)}
@@ -130,7 +137,7 @@ def _shuffle_table_chunks(table: Table, key: str, mesh,
     dest, sub = _hash_dest_sub(table[key], D, G)
     bucket = torch.where(table.valid_mask(), sub * D + dest, G * D)
     planes, specs = stream.payloads_to_planes(
-        tuple(table[n] for n in names), words=True)
+        tuple(table[n] for n in names))
     parted, counts, starts = exchange.partition_by_bucket(bucket, planes,
                                                           G * D + 1)
     overflow, chunks = exchange.all_to_all_chunks(parted, counts, starts,
@@ -209,7 +216,7 @@ def dist_top_k(table: Table, key: str, k: int, *, largest: bool = True,
                          f"{sum(c for _, c in info)}")
     kl = min(k, max(c for _, c in info))  # candidate slots a rank
     planes, specs = stream.payloads_to_planes(
-        tuple(cand.columns[n] for n in names), words=True)
+        tuple(cand.columns[n] for n in names))
     cols = dict(zip(names, stream.planes_to_payloads(_gather_planes(
         planes, cand.capacity, mesh, [kl] * D), specs)))
     rows = torch.tensor([r for r, _ in info], device=dev)

@@ -115,15 +115,15 @@ def _assign_destinations(chunk_u: torch.Tensor, splitters: torch.Tensor,
 
 
 def _sorted_chunk(planes, nk: int, key_dtype, total_bits, config):
-    """Stable sort of received int32 planes by their key word planes (the
-    first ``nk``); returns the planes sorted."""
-    keys = stream._join_key_word_planes(planes[:nk], key_dtype)
+    """Stable sort of received planes by their key word planes (the first
+    ``nk``); returns the planes sorted."""
+    keys = stream.join_key_word_planes(planes[:nk], key_dtype)
     ks, ps = sort_ops.sort_biased_kv(keys, planes[nk:], config, total_bits)
-    return stream._key_word_planes(ks) + tuple(ps)
+    return stream.key_word_planes(ks) + tuple(ps)
 
 
 def _rebalance(planes, per: int, mesh):
-    """Rows of int32 planes sorted across the mesh in rank order →
+    """Rows of planes sorted across the mesh in rank order →
     exactly ``per`` rows a rank (global rows [r * per, (r + 1) * per)).
     One all_gather of the row counts, one host read, one all_to_all: the
     rows for rank d are a contiguous run, so no partition is needed."""
@@ -137,14 +137,14 @@ def _rebalance(planes, per: int, mesh):
                 - max(me * per, g0[s])) for s in range(D)]
     runs = [(lo[d], lo[d + 1] - lo[d]) for d in range(D)]
     _, out, _ = exchange.send_runs(planes, runs, recv, mesh)
-    return exchange.unpack_runs(out, recv, len(planes))
+    return exchange.unpack_runs(out, recv, tuple(p.dtype for p in planes))
 
 
 def _dist_sort_shard(ku, planes_pay, *, mesh, samples, G, config,
                      total_bits, per):
     """One rank's part of the sort: ``ku`` sortable bits of its padded
-    shard (``per`` rows), ``planes_pay`` int32 payload planes.  Returns
-    the int32 planes (key word planes first) of global sorted rows
+    shard (``per`` rows), ``planes_pay`` its payload planes.  Returns
+    the planes (key word planes first) of global sorted rows
     [r * per, (r + 1) * per)."""
     D = mesh.size
     smp = _strided_samples(ku, samples)
@@ -154,7 +154,7 @@ def _dist_sort_shard(ku, planes_pay, *, mesh, samples, G, config,
     # interval s goes to rank s // G as sub-chunk s % G: one partition by
     # (sub-chunk, rank) feeds every exchange
     bucket = sidx if G == 1 else (sidx % G) * D + sidx // G
-    kplanes = stream._key_word_planes(ku)
+    kplanes = stream.key_word_planes(ku)
     nk = len(kplanes)
     parted, counts, starts = exchange.partition_by_bucket(
         bucket, kplanes + tuple(planes_pay), D * G)
@@ -206,8 +206,7 @@ def dist_sort_kv(local_keys: torch.Tensor, local_values=None, mesh=None,
     ku = dtypes.to_sortable(local_keys)
     leaves, spec = (pytree.tree_flatten(local_values)
                     if local_values is not None else ([], None))
-    planes_pay, specs = stream.payloads_to_planes(tuple(leaves),
-                                                  words=True)
+    planes_pay, specs = stream.payloads_to_planes(tuple(leaves))
     if per > m:  # the max sentinel pads the shard, as in the JAX layout
         ku = torch.cat([ku, ku.new_full((per - m,), dtypes.SENTINEL_BITS)])
         planes_pay = tuple(torch.cat([p, p.new_zeros(per - m)])
@@ -220,7 +219,7 @@ def dist_sort_kv(local_keys: torch.Tensor, local_values=None, mesh=None,
     mine = want[mesh.rank]  # the padding rows sort last, past row n
     planes = tuple(p[:mine] for p in planes)
     ks = dtypes.from_sortable(
-        stream._join_key_word_planes(planes[:nk], ku.dtype),
+        stream.join_key_word_planes(planes[:nk], ku.dtype),
         local_keys.dtype)
     vals = stream.planes_to_payloads(planes[nk:], specs)
     values_out = (pytree.tree_unflatten(list(vals), spec)

@@ -79,18 +79,12 @@ rows_cut = 0
 def _sort_table(table: Table, key: str, descending: bool = False,
                 config: SortConfig = DEFAULT_CONFIG) -> Table:
     """One stable sort of every column of ``table`` by ``key``, padding
-    rows last: the key's sortable image, inverted within the key's width
-    when ``descending``, with the padding sentinel on rows past
-    ``num_rows``."""
-    col = table[key]
-    width = dtypes.key_bits(col.dtype)
-    bits = dtypes.to_sortable(col)
-    if descending:
-        bits = dtypes.complement(bits, width)
-    bits = bits.masked_fill(~table.valid_mask(), dtypes.SENTINEL_BITS)
+    rows last (``sort.padded_key``), at the key's width."""
     names = table.column_names
     _, out = sort_ops.sort_biased_kv(
-        bits, tuple(table.columns[n] for n in names), config, width)
+        sort_ops.padded_key(table[key], table.valid_mask(), descending),
+        tuple(table.columns[n] for n in names), config,
+        dtypes.key_bits(table[key].dtype))
     return Table(dict(zip(names, out)), num_rows=table.num_rows)
 
 

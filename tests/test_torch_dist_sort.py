@@ -116,10 +116,12 @@ def test_dist_sort_overlapped_kv_stable(port, jax_mesh):
 
 
 @pytest.mark.parametrize("G", [1, 2])
-@pytest.mark.parametrize("case", ["u32_full_kv", "u64_full_kv"])
+@pytest.mark.parametrize("case", ["u32_full_kv", "u64_full_kv",
+                                  "u64_full_kv_i64"])
 def test_dist_sort_full_range_unsigned_kv(port, jax_mesh, case, G):
     """Keys at and above 2^31 (2^63), ties included: the splitter searches
-    run in unsigned order on the signed containers."""
+    run in unsigned order on the signed containers.  An int64 payload rides
+    the exchange and the rebalance as one 8-byte plane."""
     _check(port, jax_mesh, case, G)
 
 

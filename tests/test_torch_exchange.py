@@ -120,6 +120,13 @@ def test_ragged_all_to_all_drop_mask_every_width(port, jax_mesh):
     outs = jax.jit(fn)(jnp.asarray(dest), jnp.asarray(drop),
                        *map(jnp.asarray, cols))
     jcounts = np.asarray(outs[-1]).reshape(D, D)
+    # the planes ride the block at their own width (int16, u32 and f32 as
+    # one word a row, u64 and f64 two): some source's u64 plane starts at
+    # an odd word offset of what its destination receives
+    words = [1 if c.itemsize <= 4 else 2 for c in cols]
+    assert any((sum(words) * int(jcounts[dst, :s].sum())
+                + sum(words[:3]) * int(jcounts[dst, s])) % 2
+               for dst in range(D) for s in range(D))
     for dst in range(D):
         got, counts = port[dst]["mixed_drop"]
         np.testing.assert_array_equal(counts, jcounts[dst])

@@ -320,7 +320,7 @@ def test_radix_passes_run_is_the_sorts_skip_rule(dtype, name):
     ds = next(d for d in datasets.make_datasets(dtype, seed=0)
               if d.name == name)
     keys = ds.generate(3000)
-    planes = stream._key_word_planes(tdt.to_sortable(
+    planes = stream.key_word_planes(tdt.to_sortable(
         tdt.tensor_from_numpy(keys, "cpu")))
     hist = cuda_radix.pass_histograms(planes, (4,) * len(planes), 256)
     runs = int((hist.max(dim=1).values < keys.size).sum())

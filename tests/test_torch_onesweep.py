@@ -193,7 +193,7 @@ def _plain_plan(tk: torch.Tensor) -> list:
     if d.itemsize < 4:
         planes, kind, passes = (tdt.as_container(tk),), d.kind, (d.itemsize,)
     else:
-        planes = stream._key_word_planes(tdt.to_sortable(tk))
+        planes = stream.key_word_planes(tdt.to_sortable(tk))
         kind, passes = "u", (4,) * len(planes)
     table = cr.pass_histograms(planes, passes, 256, kind)
     return cr.plan_runs(table, planes, passes[0], 256, kind)
@@ -1047,9 +1047,9 @@ def test_wide_payload_rides_without_a_copy(entry, dtype, monkeypatch):
     col = torch.from_numpy(bits).view(getattr(torch, dtype))
     iota = torch.arange(n, dtype=torch.int32)
     sort_spy = _Calls(cr.sort_passes)
-    split_spy = _Calls(stream._key_word_planes)
+    split_spy = _Calls(stream.key_word_planes)
     monkeypatch.setattr(cr, "sort_passes", sort_spy)
-    monkeypatch.setattr(stream, "_key_word_planes", split_spy)
+    monkeypatch.setattr(stream, "key_word_planes", split_spy)
     rng = np.random.default_rng(5)
     if entry == "sort_kv":
         keys = rng.integers(0, 50, n).astype(np.int32)
@@ -1075,10 +1075,12 @@ def test_wide_payload_rides_without_a_copy(entry, dtype, monkeypatch):
 
 
 def test_exchange_still_packs_int32_word_planes(monkeypatch):
-    """parallel/'s exchange splits an 8-byte column into its (lo, hi)
-    int32 word planes for the collectives, and joins them back bit for
-    bit: packed_all_to_all and ragged_all_to_all (their partition runs,
-    the transport is recorded in place of a mesh)."""
+    """parallel/'s exchange moves an 8-byte column as one int64 plane, the
+    plane the radix pass moves, and packs it into the collectives' int32
+    block as its two words a row: packed_all_to_all and ragged_all_to_all
+    (their partition runs, the transport is recorded in place of a mesh)
+    send planes [int64, int32] that come back bit for bit, and the block
+    of pack_runs / unpack_runs round-trips them."""
     from types import SimpleNamespace
 
     from radix_sort_tpu_torch.parallel import exchange
@@ -1102,20 +1104,52 @@ def test_exchange_still_packs_int32_word_planes(monkeypatch):
     got2, _, _ = exchange.ragged_all_to_all(cols, dest, mesh)
     assert len(sent) == 2
     for planes in sent:
-        assert [p.dtype for p in planes] == [torch.int32] * 3
+        assert [p.dtype for p in planes] == [torch.int64, torch.int32]
     np.testing.assert_array_equal(
         tdt.tensor_to_numpy(got[0]).view(np.int64), bits)
     order = np.argsort(dest.numpy(), kind="stable")
     np.testing.assert_array_equal(got2[1].numpy(), order)
     np.testing.assert_array_equal(
         tdt.tensor_to_numpy(got2[0]).view(np.int64), bits[order])
-    words, specs = stream.payloads_to_planes(cols, words=True)
-    planes, _ = stream.payloads_to_planes(cols)
-    assert [p.dtype for p in words] == [torch.int32] * 3
-    assert [p.dtype for p in planes] == [torch.int64, torch.int32]
-    for a, b in zip(stream.planes_to_payloads(words, specs), cols):
-        np.testing.assert_array_equal(tdt.tensor_to_numpy(a).view(np.uint8),
-                                      tdt.tensor_to_numpy(b).view(np.uint8))
+    # the block: 3 words a row, runs of odd length put the second run's
+    # int64 plane at an odd word offset
+    planes = sent[1]
+    runs = [(0, 333), (333, 0), (333, n - 333)]
+    block = exchange.pack_runs(planes, runs)
+    assert block.dtype == torch.int32 and block.numel() == 3 * n
+    assert exchange.words_per_row(planes) == 3
+    back = exchange.unpack_runs(block, [c for _, c in runs],
+                                (torch.int64, torch.int32))
+    for a, b in zip(back, planes):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+@pytest.mark.parametrize("count", [1, 333, 1000])
+@pytest.mark.parametrize("order", ["i32_first", "i64_first"])
+def test_unpack_runs_moves_int64_planes_at_odd_word_offsets(order, count):
+    """One run's planes are views of the received block, but an int64
+    plane that starts at an odd word offset (after an odd count of int32
+    words) cannot be viewed as int64 there: unpack_runs copies that slice,
+    and every plane comes back bit for bit."""
+    from radix_sort_tpu_torch.parallel import exchange
+
+    wide = torch.from_numpy(_wide_column(count, 13))
+    narrow = torch.arange(count, dtype=torch.int32) * 7 - 5
+    planes = ((narrow, wide, narrow.flip(0)) if order == "i32_first"
+              else (wide, narrow, wide.flip(0)))
+    kinds = tuple(p.dtype for p in planes)
+    block = exchange.pack_runs(planes, [(0, count)])
+    assert block.numel() == count * exchange.words_per_row(planes)
+    back = exchange.unpack_runs(block, [count], kinds)
+    for a, b in zip(back, planes):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    # an offset in the received block, as a later source's run has
+    shifted = torch.cat([torch.full((1,), -1, dtype=torch.int32), block])
+    back = exchange.unpack_runs(shifted[1:], [count], kinds)
+    for a, b in zip(back, planes):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
 def test_wide_plane_checks():

@@ -261,10 +261,10 @@ def test_u64_word_planes_roundtrip():
     rng = np.random.default_rng(4)
     keys = rng.integers(0, 2**64, 777, dtype=np.uint64)
     bits = tdt.to_sortable(tdt.tensor_from_numpy(keys, "cpu"))
-    words = stream._key_word_planes(bits)
+    words = stream.key_word_planes(bits)
     assert len(words) == 2 and all(w.dtype == torch.int32 for w in words)
     np.testing.assert_array_equal(words[0].numpy().view(np.uint32),
                                   (keys & 0xFFFFFFFF).astype(np.uint32))
     np.testing.assert_array_equal(words[1].numpy().view(np.uint32),
                                   (keys >> np.uint64(32)).astype(np.uint32))
-    assert torch.equal(stream._join_key_word_planes(words, torch.int64), bits)
+    assert torch.equal(stream.join_key_word_planes(words, torch.int64), bits)

@@ -177,7 +177,7 @@ def _sort_args(dtype: str, dist: str, npay: int, n: int, device):
     pays = tuple(torch.from_numpy(v).to(device) for v in _payloads(npay, n))
     if d.itemsize < 4:
         return (tdt.as_container(tk),), (d.itemsize,), pays, d.kind
-    kp = stream._key_word_planes(tdt.to_sortable(tk))
+    kp = stream.key_word_planes(tdt.to_sortable(tk))
     return kp, (4,) * len(kp), pays, "u"
 
 

@@ -15,7 +15,7 @@ import radix_sort_tpu_torch as rtt
 from radix_sort_tpu.ops import topk as jtopk
 from radix_sort_tpu.table import Table as JTable
 from radix_sort_tpu_torch import convert, dtypes as tdt
-from radix_sort_tpu_torch.ops import cuda_merge, cuda_radix, topk
+from radix_sort_tpu_torch.ops import cuda_merge, stream, topk
 
 DTYPES = [np.uint32, np.int32, np.uint64, np.int64, np.float32, np.int16]
 IDS = ["u32", "i32", "u64", "i64", "f32", "i16"]
@@ -90,11 +90,11 @@ def test_top_k_16bit_under_merge_sorts_16_bits(monkeypatch, dtype):
     (2 passes) on the large-k path, as ops/sort.py documents, for both
     directions and for top_k_kv and topk_table alike."""
     merges, radix_bits = [], []
-    real_merge, real_radix = cuda_merge.merge_sort_bits, cuda_radix.sort_biased
+    real_merge, real_radix = cuda_merge.merge_sort_bits, stream.sort_biased
     monkeypatch.setattr(cuda_merge, "merge_sort_bits",
                         lambda b: merges.append(b.numel()) or real_merge(b))
     monkeypatch.setattr(
-        cuda_radix, "sort_biased",
+        stream, "sort_biased",
         lambda b, p, c, t=None: radix_bits.append(t) or real_radix(b, p, c, t))
     keys = _tied_keys(dtype, 3000, 5)
     rows = np.arange(3000, dtype=np.int32)

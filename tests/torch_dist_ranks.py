@@ -88,6 +88,10 @@ SORT_INPUTS = {
         np.random.default_rng(21).integers(0, 2**32, 3001, dtype=np.uint64)
         .astype(np.uint32), np.arange(3001, dtype=np.int32)),
     "u64_full_kv": lambda: (_u64_tied_keys(), np.arange(3001, dtype=np.int32)),
+    # an 8-byte payload: one int64 plane through the exchange, whose odd
+    # row counts put it at odd word offsets of the blocks
+    "u64_full_kv_i64": lambda: (_u64_tied_keys(),
+                                np.arange(3001, dtype=np.int64)),
     "tiny": lambda: (np.array([5, 1, 3], dtype=np.uint32),
                      np.arange(3, dtype=np.int32)),
     "u8_kv": lambda: (_narrow_keys(np.uint8), np.arange(3001, dtype=np.int32)),
@@ -133,7 +137,8 @@ SORT_CASES = ([(f"dist_{n}", g) for n in ("Zeros", "RandomDistributed",
                                           "Random", "Range", "InvertedRange")
                for g in (1, 2)]
               + [(c, g) for c in ("kv_stable", "non_divisible", "u32_full_kv",
-                                  "u64_full_kv", "tiny") for g in (1, 2)]
+                                  "u64_full_kv", "u64_full_kv_i64", "tiny")
+                 for g in (1, 2)]
               + [("i64", 2), ("f32", 2), ("zipf", 2), ("overlap_Zeros", 4),
                  ("overlap_RandomDistributed", 4), ("overlap_kv", 2)]
               + [(c, g) for c in ("u8_kv", "f16_kv") for g in (1, 2)])
