@@ -2,21 +2,31 @@
 
 Port of ``radix_sort_tpu/ops/join.py`` (``hash_join`` →
 ``_merge_scan_join``).  Build and probe rows are radix-sorted together by
-key, every column riding as payload; within each key run the j-th build row
-is propagated forward onto the probe rows by a segmented fill; the matched
-(probe, build) candidates are compacted to the front by the radix kernels'
-stable pass.  The JAX package's ``lax.associative_scan`` segmented scans
-become plain torch: a cumulative sum minus its value at the run start, and
-the last seed position at or before each row (scan.last_marked_index).
+their padded key (``sort.padded_key``) with one payload, the row id: build
+row i is id i, probe row i is id B + i (int32, int64 once P + B reaches
+2^31).  Whether a sorted row is real follows from its id alone, as
+``Table.valid_mask()`` is ``arange < num_rows``.  Within each key run the
+j-th build row's id is propagated forward onto the probe rows by a
+segmented fill; the matched (probe id, build id) pairs are compacted to the
+front by the radix kernels' stable pass, and each output column is gathered
+once through them.  No table column rides the sort or the compaction.  The
+JAX package's ``lax.associative_scan`` segmented scans become plain torch:
+a cumulative sum minus its value at the run start, and the last seed
+position at or before each row (scan.last_marked_index).
 
 Output capacity is static (default probe capacity x ``max_duplicates``); a
 larger true match count, or a key with more build rows than
-``max_duplicates``, raises the ``overflow`` flag and truncates.
+``max_duplicates``, raises the ``overflow`` flag and truncates.  The rows
+past the match count are padding whose contents are unspecified (each
+gathers row 0 of its input); every caller reads ``[:num_rows]``.
 
-Spans (``utils/profiling.span``, attribute ``rows`` = P + B): ``join.sort``
-(the operands and their sort), ``join.match`` (run starts, segmented
-fills, build-column gathers, the candidates) and ``join.compact``.
-``sorted_rows`` counts the rows that entered a join's sort.
+Spans (``utils/profiling.span``): ``join.sort`` (the key, the ids and their
+sort; attributes ``rows`` = P + B and ``bytes`` = the key's and the id's
+bytes a row times the rows), ``join.match`` (run starts, segmented fills,
+the candidates) and ``join.compact`` (attribute ``rows`` = P + B), and
+``join.gather`` (the output columns; ``rows`` = the output capacity).
+``sorted_rows`` counts the rows that entered a join's sort, ``sorted_bytes``
+their key and payload bytes.
 """
 
 from __future__ import annotations
@@ -32,57 +42,57 @@ from . import sort as sort_ops
 from .scan import last_marked_index
 
 # Rows that entered the join's sort (probe and build capacity, padding
-# included), over every join of the process; read as stream.host_reads is.
+# included), and the bytes of their key and payload planes, over every
+# join of the process; read as stream.host_reads is.
 sorted_rows = 0
+sorted_bytes = 0
+
+
+def _gather(col: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``col``'s rows at ``idx`` as bits (its container); zeros where the
+    column has no row to read."""
+    c = dtypes.as_container(col)
+    out = (c.index_select(0, idx) if c.shape[0] else
+           c.new_zeros(idx.shape[0]))
+    return dtypes.from_container(out, col.dtype)
 
 
 def _merge_scan_join(probe: Table, build: Table, key: str,
                      out_capacity: int, suffixes, max_duplicates: int = 1,
                      config: SortConfig = DEFAULT_CONFIG):
-    """Inner join by one stable sort, segmented fills and one compaction.
+    """Inner join by one stable sort of key and row id, segmented fills,
+    one compaction of id pairs and one gather a column.
 
     The JAX package sorts on (key, side) with side 0 for build rows.  Here
-    the build rows come first in the concatenation, so a stable sort on the
-    key alone already puts every build row of a key before its probe rows
+    the build rows come first in the id order, so a stable sort on the key
+    alone already puts every build row of a key before its probe rows
     (padding included: build valid, build padding, probe valid, probe
     padding within the sentinel run), the same order as the two-key sort.
-    Padding rows never match (sentinel keys + validity)."""
-    global sorted_rows
+    Padding rows never match: their ids say they are padding, so real keys
+    equal to the sentinel still match."""
+    global sorted_rows, sorted_bytes
     D = max_duplicates
     P, B = probe.capacity, build.capacity
     n = P + B
-    sorted_rows += n
     dev = probe.device
-    b_names, p_names = build.column_names, probe.column_names
-    with profiling.span("join.sort", rows=n):
+    id_dtype = torch.int32 if n < 2 ** 31 else torch.int64
+    row_bytes = max(build[key].element_size(), 4) + id_dtype.itemsize
+    sorted_rows += n
+    sorted_bytes += n * row_bytes
+    with profiling.span("join.sort", rows=n, bytes=n * row_bytes):
         keys_all = torch.cat([
             sort_ops.padded_key(build[key], build.valid_mask()),
             sort_ops.padded_key(probe[key], probe.valid_mask())])
-        side = torch.cat([torch.zeros(B, dtype=torch.int32, device=dev),
-                          torch.ones(P, dtype=torch.int32, device=dev)])
-        zb = torch.zeros(B, dtype=torch.bool, device=dev)
-        zp = torch.zeros(P, dtype=torch.bool, device=dev)
-        build_valid = torch.cat([build.valid_mask(), zp])
-        probe_valid = torch.cat([zb, probe.valid_mask()])
-
-        operands = [side, build_valid, probe_valid]
-        for nme in b_names:
-            c = dtypes.as_container(build.columns[nme])
-            operands.append(torch.cat([c, c.new_zeros(P)]))
-        for nme in p_names:
-            c = dtypes.as_container(probe.columns[nme])
-            operands.append(torch.cat([c.new_zeros(B), c]))
-        k_s, out = sort_ops.sort_biased_kv(keys_all, operands, config)
-    side_s, bval_s, pval_s = out[0], out[1], out[2]
-    b_cols_s = out[3:3 + len(b_names)]
-    p_cols_s = dict(zip(p_names, out[3 + len(b_names):]))
+        rid = torch.arange(n, dtype=id_dtype, device=dev)
+        k_s, (rid_s,) = sort_ops.sort_biased_kv(keys_all, (rid,), config)
 
     with profiling.span("join.match", rows=n):
         is_start = torch.ones(n, dtype=torch.bool, device=dev)
         is_start[1:] = k_s[1:] != k_s[:-1]
         start = last_marked_index(is_start)
-        is_build = (side_s == 0) & bval_s
-        is_probe_row = (side_s == 1) & pval_s
+        pid = rid_s - B
+        is_build = rid_s < build.num_rows
+        is_probe_row = (pid >= 0) & (pid < probe.num_rows)
 
         # in-run index of each build row: the exclusive build count minus
         # its value at the run start
@@ -91,17 +101,17 @@ def _merge_scan_join(probe: Table, build: Table, key: str,
         bidx = excl - excl[start]
 
         def run_ffill(seed_mask):
-            """Index of the row whose payload reaches each row: the last
-            seed (unique per run) at or before it within its run, else the
-            run start; and whether a seed was found."""
+            """Index of the row whose id reaches each row: the last seed
+            (unique per run) at or before it within its run, else the run
+            start; and whether a seed was found."""
             src = last_marked_index(seed_mask | is_start)
             return seed_mask[src], src
 
-        matched_cols = []
+        matched_j, bid_j = [], []
         for j in range(D):
             has_j, src_j = run_ffill(is_build & (bidx == j))
-            matched_cols.append((is_probe_row & has_j,
-                                 tuple(c[src_j] for c in b_cols_s)))
+            matched_j.append(is_probe_row & has_j)
+            bid_j.append(rid_s[src_j])
         if D < B:
             has_over, _ = run_ffill(is_build & (bidx == D))
             dup_overflow = (is_probe_row & has_over).any()
@@ -110,27 +120,32 @@ def _merge_scan_join(probe: Table, build: Table, key: str,
 
         # ---- emit: (n, D) candidates position-major
         def stack(per_j):
+            if len(per_j) == 1:
+                return per_j[0]
             return torch.stack(tuple(per_j), dim=1).reshape(-1)
 
-        matched = stack(m for m, _ in matched_cols)
-        names_out, vals_out, dtypes_out = [], [], []
-        for nme in p_names:
-            names_out.append(nme + suffixes[0])
-            vals_out.append(stack([p_cols_s[nme]] * D))
-            dtypes_out.append(probe.columns[nme].dtype)
-        for i, nme in enumerate(b_names):
-            oname = nme + suffixes[1] if (nme + suffixes[0]) in names_out \
-                else nme
-            names_out.append(oname)
-            vals_out.append(stack(mc[1][i] for mc in matched_cols))
-            dtypes_out.append(build.columns[nme].dtype)
+        matched = stack(matched_j)
         n_match = matched.sum(dtype=torch.int32)
 
     with profiling.span("join.compact", rows=n):
-        packed, _ = partition.compact_mask(matched, tuple(vals_out),
-                                           method="auto", config=config)
-        out_cols = {nm: dtypes.from_container(v[:out_capacity], dt)
-                    for nm, v, dt in zip(names_out, packed, dtypes_out)}
+        (pid_c, bid_c), _ = partition.compact_mask(
+            matched, (stack([pid] * D), stack(bid_j)), method="auto",
+            config=config)
+
+    cap = min(out_capacity, n * D)
+    with profiling.span("join.gather", rows=cap):
+        # past the match count every row reads row 0: no index is out of
+        # range and the padding's reads all hit one line
+        real = torch.arange(cap, device=dev) < n_match
+        pid_c = torch.where(real, pid_c[:cap], 0)
+        bid_c = torch.where(real, bid_c[:cap], 0)
+        out_cols = {}
+        for nme in probe.column_names:
+            out_cols[nme + suffixes[0]] = _gather(probe.columns[nme], pid_c)
+        for nme in build.column_names:
+            oname = nme + suffixes[1] if (nme + suffixes[0]) in out_cols \
+                else nme
+            out_cols[oname] = _gather(build.columns[nme], bid_c)
     stats = {"match_count": n_match,
              "overflow": (n_match > out_capacity) | dup_overflow}
     return Table(out_cols, num_rows=torch.clamp(n_match, max=out_capacity)

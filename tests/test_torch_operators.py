@@ -15,6 +15,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from radix_sort_tpu.ops import aggregate as jagg, filter as jfilt
 from radix_sort_tpu.ops import join as jjoin
@@ -244,6 +245,138 @@ def test_hash_join_overflow_matches_jax(case):
     assert bool(jstats["overflow"]) and bool(tstats["overflow"])
     assert int(tstats["match_count"]) == int(jstats["match_count"])
     assert_tables_equal(tres, jres)
+
+
+def _valid_bits_equal(got, want):
+    """Names, dtypes, capacity, num_rows, and every valid row bit for bit
+    (NaN payloads and signs included)."""
+    assert int(got.num_rows) == int(want.num_rows)
+    assert got.capacity == want.capacity
+    g, w = got.to_numpy(), want.to_numpy()
+    assert set(g) == set(w)
+    for k in w:
+        assert g[k].dtype == w[k].dtype, (k, g[k].dtype, w[k].dtype)
+        u = np.dtype(f"u{w[k].dtype.itemsize}")
+        np.testing.assert_array_equal(g[k].view(u), w[k].view(u), err_msg=k)
+
+
+I64_MAX = np.iinfo(np.int64).max  # its sortable image is the sentinel
+
+
+def _edge_tables(case, rng):
+    """(probe, probe num_rows, build, build num_rows, hash_join kwargs)."""
+    kw = {}
+    if case in ("sentinel_u32", "sentinel_i64"):
+        dt, sent = ((np.uint32, SENT32) if case == "sentinel_u32"
+                    else (np.int64, I64_MAX))
+        pk = rng.integers(0, 60, 400).astype(dt)
+        pk[rng.random(400) < 0.1] = sent
+        bk = rng.permutation(np.arange(59, dtype=dt))[:50]
+        bk[7] = sent
+        return ({"k": pk, "pv": np.arange(400, dtype=np.int32)}, 370,
+                {"k": bk, "bv": (np.arange(50) * 7).astype(np.int64)}, 45,
+                kw)
+    pk = rng.integers(0, 40, 300).astype(np.int64)
+    pk[::17] = I64_MAX  # meets the build's padding in the sentinel run
+    probe = {"k": pk, "pv": np.arange(300, dtype=np.int32),
+             "px": rng.standard_normal(300)}
+    bk = rng.permutation(40).astype(np.int64)
+    build = {"k": bk, "bd": rng.integers(0, 9999, 40).astype(np.int32),
+             "bw": rng.standard_normal(40)}
+    p_rows, b_rows = 280, 38
+    if case == "empty_probe":
+        probe = {c: v[:0] for c, v in probe.items()}
+        p_rows = 0
+    elif case == "empty_build":
+        build = {c: v[:0] for c, v in build.items()}
+        b_rows = 0
+    elif case == "build_all_padding":
+        b_rows = 0
+    elif case == "dup3_overflow":
+        build = {c: np.concatenate([v, v[:20], v[:10]])
+                 for c, v in build.items()}
+        b_rows = None
+        kw = {"max_duplicates": 3, "out_capacity": 200}
+    elif case == "nan_payloads":
+        # quiet NaNs with payloads and both signs (the JAX fill keeps
+        # these; it quiets a signaling NaN and maps -0.0 to +0.0)
+        bits = build["bw"].view(np.uint64).copy()
+        bits[:12] = np.array([0x7FF8000000000123, 0xFFF8000000000456,
+                              0x7FFFFFFFFFFFFFFF, 0xFFF0000000000000,
+                              0x7FF0000000000000, 0x7FF8000000000000] * 2,
+                             np.uint64)
+        build["bw"] = bits.view(np.float64)
+    return probe, p_rows, build, b_rows, kw
+
+
+EDGE_CASES = ["sentinel_u32", "sentinel_i64", "empty_probe", "empty_build",
+              "build_all_padding", "dup3_overflow", "nan_payloads"]
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_hash_join_edge_cases_match_jax(case):
+    """The join's edges against the JAX package, bit for bit on the valid
+    rows: real keys equal to the sentinel on both sides beside padding
+    rows (u32, i64), an empty probe, an empty build, a build of padding
+    only, three duplicates a key into too small an output, and float64
+    build columns of NaN payloads."""
+    rng = np.random.default_rng(EDGE_CASES.index(case) + 20)
+    probe, p_rows, build, b_rows, kw = _edge_tables(case, rng)
+    jp, tp = both(probe, num_rows=p_rows)
+    jb, tb = both(build, num_rows=b_rows)
+    jres, jstats = jx(lambda p, b: jjoin.hash_join(p, b, "k", **kw), jp, jb)
+    tres, tstats = join.hash_join(tp, tb, "k", **kw)
+    assert int(tstats["match_count"]) == int(jstats["match_count"])
+    assert bool(tstats["overflow"]) == bool(jstats["overflow"])
+    assert bool(tstats["overflow"]) == (case == "dup3_overflow")
+    matches = int(tstats["match_count"])
+    assert (matches == 0) == case.startswith(("empty", "build_all"))
+    _valid_bits_equal(tres, jres)
+
+
+def test_hash_join_sorts_key_and_one_row_id(monkeypatch):
+    """A Q3-shaped join (int64 key, three columns a side): the join's sort
+    takes the padded key and one int32 row-id plane of P + B rows, its
+    compaction two int32 id planes, and ``join.sorted_bytes`` grows by
+    12 (P + B)."""
+    from radix_sort_tpu_torch.ops import partition, sort as sort_ops
+
+    sorts, compacts = [], []
+    real_sort, real_compact = sort_ops.sort_biased_kv, partition.compact_mask
+
+    def sort_biased_kv(keys, payloads, *a, **k):
+        sorts.append((keys, tuple(payloads)))
+        return real_sort(keys, payloads, *a, **k)
+
+    def compact_mask(mask, arrays, *a, **k):
+        compacts.append(tuple(arrays))
+        return real_compact(mask, arrays, *a, **k)
+
+    monkeypatch.setattr(sort_ops, "sort_biased_kv", sort_biased_kv)
+    monkeypatch.setattr(partition, "compact_mask", compact_mask)
+    rng = np.random.default_rng(31)
+    P, B = 900, 300
+    okey = rng.permutation(np.arange(1, 4 * B, 4))[:B].astype(np.int64)
+    lkey = okey[rng.integers(0, B, P)]
+    lkey[::5] += 2  # line items of no order
+    probe = {"k": lkey, "price": rng.integers(1, 10**7, P).astype(np.int64),
+             "disc": rng.standard_normal(P)}
+    build = {"k": okey, "date": rng.integers(8000, 11000, B).astype(np.int32),
+             "prio": rng.integers(0, 5, B).astype(np.int32)}
+    jp, tp = both(probe, num_rows=850)
+    jb, tb = both(build, num_rows=290)
+    before = join.sorted_bytes
+    tres, tstats = join.hash_join(tp, tb, "k")
+    assert join.sorted_bytes - before == 12 * (P + B)
+    (keys, payloads), = sorts
+    assert keys.dtype == torch.int64 and keys.shape == (P + B,)
+    assert [(p.dtype, tuple(p.shape)) for p in payloads] == [
+        (torch.int32, (P + B,))]
+    (planes,) = compacts
+    assert [p.dtype for p in planes] == [torch.int32, torch.int32]
+    jres, jstats = jx(lambda p, b: jjoin.hash_join(p, b, "k"), jp, jb)
+    assert int(tstats["match_count"]) == int(jstats["match_count"]) > 0
+    _valid_bits_equal(tres, jres)
 
 
 def test_hash_join_key_dtype_mismatch_raises():

@@ -254,17 +254,20 @@ def test_join_spans_and_sorted_rows(spans_off, on):
     """On, the query's join step holds query.cut (the filtered probe cut
     to its 250 valid rows beside the 40 of the build), then join.sort,
     join.match and join.compact, each with rows = the cut probe + build
-    rows; off, nothing is recorded.  Either way ``join.sorted_rows`` grows
-    by that count."""
+    rows (join.sort with the bytes of its int64 key and int32 row id), and
+    join.gather with rows = the output capacity, the cut probe's 250;
+    off, nothing is recorded.  Either way ``join.sorted_rows`` grows by
+    that count and ``join.sorted_bytes`` by 12 bytes a row."""
     from radix_sort_tpu_torch.ops import join as join_ops
 
-    before = join_ops.sorted_rows
+    before = join_ops.sorted_rows, join_ops.sorted_bytes
     if on:
         profiling.enable()
     got, stats = _join_query()
     profiling.disable()
     spans = profiling.take_spans()
-    assert join_ops.sorted_rows - before == 250 + 40
+    assert join_ops.sorted_rows - before[0] == 250 + 40
+    assert join_ops.sorted_bytes - before[1] == 12 * (250 + 40)
     assert int(stats["match_count"]) == len(got["k"]) > 0
     assert not bool(stats["overflow"])
     if not on:
@@ -275,9 +278,11 @@ def test_join_spans_and_sorted_rows(spans_off, on):
     (step,) = [s for s in spans if s.name == "query.join"]
     inner = [s for s in spans if s.parent == step.id]
     assert [s.name for s in inner] == ["query.cut", "join.sort",
-                                       "join.match", "join.compact"]
-    assert inner[0].attrs == {"rows": 300 + 40, "kept": 250 + 40}
-    assert all(s.attrs == {"rows": 290} for s in inner[1:])
+                                       "join.match", "join.compact",
+                                       "join.gather"]
+    assert [s.attrs for s in inner] == [
+        {"rows": 300 + 40, "kept": 250 + 40}, {"rows": 290, "bytes": 12 * 290},
+        {"rows": 290}, {"rows": 290}, {"rows": 250}]
     for s in spans:
         if s.name == "radix.sort_passes":
             assert {"join.sort", "join.compact",
